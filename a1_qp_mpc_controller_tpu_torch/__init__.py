@@ -3,7 +3,7 @@
 The JAX package ``a1_qp_mpc_controller_tpu`` is the reference; this
 package mirrors its layout (``config``, ``types``, ``utils/``,
 ``models/``, ``ops/``, ``control/``, ``sim/``, ``parallel/``) with a
-written-out leading batch dimension in place of ``vmap``. The two solver
+written-out leading batch dimension in place of ``vmap``. The solver
 kernels of the batched tick are hand-written CUDA for Hopper
 (``csrc/``, bound in ``ops/kernels.py``).
 

@@ -18,9 +18,11 @@ from a1_qp_mpc_controller_tpu_torch.types import (
 
 def control_tick_build(cfg: A1Config, params: RobotParams, cs: CtrlState,
                        mem: CtrlMem, sensors: SensorData, joy: JoyCmd,
-                       dt: torch.Tensor):
+                       dt: torch.Tensor, with_a_mat: bool = False):
     """ingest -> FSM -> gait -> swing -> EKF -> terrain adaptation ->
-    condensed MPC QP; returns (cs, mem, MpcProblem). MPC profiles only."""
+    condensed MPC QP; returns (cs, mem, MpcProblem). MPC profiles only.
+    ``with_a_mat`` materializes the per-scenario constraint matrix (the
+    legacy solve reads it; the shared-basis solve does not)."""
     assert cfg.stance_leg_control_type == 1, "split tick is MPC-only"
     cs, mem = ingest_sensors(cfg, params, cs, mem, sensors)
     if not cfg.use_estimator:
@@ -33,7 +35,8 @@ def control_tick_build(cfg: A1Config, params: RobotParams, cs: CtrlState,
         ekf, cs = estimator.step(cfg, params, cs, mem.ekf, dt)
         mem = mem.replace(ekf=ekf)
     cs, mem = grf.terrain_adaptation(cfg, cs, mem)
-    prob = grf.mpc_problem(cfg, params, cs, mem, dt)
+    prob = grf.mpc_problem(cfg, params, cs, mem, dt,
+                           with_a_mat=with_a_mat)
     return cs, mem, prob
 
 

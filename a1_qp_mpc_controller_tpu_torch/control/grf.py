@@ -73,13 +73,14 @@ def terrain_adaptation(cfg: A1Config, cs: CtrlState, mem: CtrlMem
 
 @tensorclass
 class MpcProblem:
-    """One tick's condensed MPC QP + warm-start data, batched. The
-    constraint matrix A = A0 + mu A1 is never materialized per scenario:
-    the port's solve is the shared-basis route, so unlike the JAX
-    package's ``MpcProblem`` there is no ``a_mat``."""
+    """One tick's condensed MPC QP + warm-start data, batched.
+    ``a_mat`` is None when built with ``with_a_mat=False``: the
+    shared-basis solve never materializes the per-scenario constraint
+    matrix A = A0 + mu A1; only the legacy route reads it."""
 
     p_mat: torch.Tensor          # (B,120,120)
     q_vec: torch.Tensor          # (B,120)
+    a_mat: torch.Tensor | None   # (B,200,120) or None
     lb: torch.Tensor             # (B,200)
     ub: torch.Tensor             # (B,200)
     warm_x: torch.Tensor         # (B,120)
@@ -90,7 +91,8 @@ class MpcProblem:
 
 
 def mpc_problem(cfg: A1Config, params: RobotParams, cs: CtrlState,
-                mem: CtrlMem, dt: torch.Tensor) -> MpcProblem:
+                mem: CtrlMem, dt: torch.Tensor,
+                with_a_mat: bool = False) -> MpcProblem:
     """Build the tick's MPC QP (A1RobotControl.cpp:446-518) with swing
     elimination, the flip-masked and load-rescaled warm start, the
     cross-tick rho carry and the rescue-window flags. Pure."""
@@ -125,6 +127,8 @@ def mpc_problem(cfg: A1Config, params: RobotParams, cs: CtrlState,
     p_mat, q_vec = srb.mpc_cost(a_qp, b_qp, params.q_weights,
                                 params.r_weights, mpc_states, x_ref, h,
                                 contacts=cs.contacts)
+    a_mat = (srb.friction_constraint_matrix(params.mu_mpc, h)
+             if with_a_mat else None)
     lb, ub = srb.mpc_bounds(cs.contacts, params.fz_min, params.fz_max, h)
     s_var = srb.tile_last(cs.contacts.repeat_interleave(3, dim=1), h)
     s_row = srb.tile_last(cs.contacts.repeat_interleave(5, dim=1), h)
@@ -171,7 +175,7 @@ def mpc_problem(cfg: A1Config, params: RobotParams, cs: CtrlState,
     if cfg.mpc_solver_mode != "fixed":
         warm_x = where_b(flipped, torch.zeros_like(warm_x), warm_x)
         warm_y = where_b(flipped, torch.zeros_like(warm_y), warm_y)
-    return MpcProblem(p_mat=p_mat, q_vec=q_vec, lb=lb, ub=ub,
+    return MpcProblem(p_mat=p_mat, q_vec=q_vec, a_mat=a_mat, lb=lb, ub=ub,
                       warm_x=warm_x, warm_y=warm_y, rho0=rho0,
                       flipped=flipped, rescue_flag=rescue_flag)
 

@@ -1,7 +1,7 @@
-"""The batched solver's two kernels (counterpart of
-``ops/pallas_kernels.py``'s ``batched_inverse`` and
-``fused_admm_shared``): hand-written CUDA for Hopper (``csrc/``), each
-beside a plain PyTorch version with the same arithmetic.
+"""The batched solver's kernels (counterpart of ``ops/pallas_kernels.py``'s
+``batched_inverse``, ``batched_inverse_small``, ``fused_admm_shared`` and
+``fused_admm``): hand-written CUDA for Hopper (``csrc/``), each beside a
+plain PyTorch version with the same arithmetic.
 
 A wrapper takes the plain version only for a tensor that lies on the
 CPU; for a CUDA tensor it launches its kernel or raises. Each launch adds
@@ -27,19 +27,27 @@ import torch
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parents[2] / "build" / "kernels"
 _SOURCES = {"gj_inverse": "gj_inverse.cu",
-            "fused_admm_shared": "fused_admm_shared.cu"}
+            "gj_inverse_small": "gj_inverse_small.cu",
+            "fused_admm_shared": "fused_admm_shared.cu",
+            "fused_admm": "fused_admm.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 MAX_SMEM_BYTES = 232448     # per-block dynamic shared memory on Hopper
+GJ_N_MAX = 169              # batched_inverse's largest n: (2n^2 + 3n) floats
+SMALL_N_MAX = 128           # batched_inverse_small's largest n
 
-launches = {"batched_inverse": 0, "fused_admm_shared": 0}
+launches = {"batched_inverse": 0, "batched_inverse_small": 0,
+            "fused_admm_shared": 0, "fused_admm": 0}
 build_log: dict[str, str] = {}
 _fns: dict[str, ctypes._CFuncPtr] = {}
 
 _P = ctypes.c_void_p
 _ARGTYPES = {
     "gj_inverse": [_P, _P, ctypes.c_int, ctypes.c_int, _P],
+    "gj_inverse_small": [_P, _P, ctypes.c_int, ctypes.c_int, _P],
     "fused_admm_shared": [_P] * 16 + [ctypes.c_int] * 4
+    + [ctypes.c_float] * 3 + [_P],
+    "fused_admm": [_P] * 12 + [ctypes.c_int] * 4
     + [ctypes.c_float] * 3 + [_P],
 }
 
@@ -85,14 +93,15 @@ def build_kernels() -> dict[str, Path]:
     return libs
 
 
-def _fn(name: str):
-    if name not in _fns:
+def _fn(name: str, symbol: str = "launch", argtypes=None):
+    key = f"{name}_{symbol}"
+    if key not in _fns:
         lib = ctypes.CDLL(str(build_kernels()[name]))
-        fn = getattr(lib, f"{name}_launch")
-        fn.argtypes = _ARGTYPES[name]
+        fn = getattr(lib, key)
+        fn.argtypes = _ARGTYPES[name] if argtypes is None else argtypes
         fn.restype = ctypes.c_int
-        _fns[name] = fn
-    return _fns[name]
+        _fns[key] = fn
+    return _fns[key]
 
 
 def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device):
@@ -115,7 +124,29 @@ def _on_card(t: torch.Tensor) -> bool:
     return True
 
 
-# --- K1: Gauss-Jordan inverse -------------------------------------------
+# --- K1 and K3: Gauss-Jordan inverse ------------------------------------
+
+def _inverse(m: torch.Tensor, name: str, lib: str, plain, n_max: int):
+    """The launch discipline K1 and K3 share: (B, n, n) with n <= n_max
+    on any device, the plain version on the CPU, else the ``lib``
+    kernel, counted in ``launches[name]``."""
+    if m.ndim != 3 or m.shape[1] != m.shape[2]:
+        raise ValueError(f"{name}: expected (B, n, n), got "
+                         f"{tuple(m.shape)}")
+    b, n, _ = m.shape
+    if n > n_max:
+        raise ValueError(f"{name}: n={n} > {n_max}")
+    if not _on_card(m):
+        return plain(m)
+    _check("m", m, (b, n, n), m.device)
+    out = torch.empty_like(m)
+    rc = _fn(lib)(m.data_ptr(), out.data_ptr(), b, n,
+                  torch.cuda.current_stream(m.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{lib} launch failed: CUDA error {rc}")
+    launches[name] += 1
+    return out
+
 
 def batched_inverse_plain(m: torch.Tensor) -> torch.Tensor:
     """Pivot-free lock-step Gauss-Jordan inverse (B, n, n) -> (B, n, n),
@@ -138,23 +169,34 @@ def batched_inverse_plain(m: torch.Tensor) -> torch.Tensor:
 
 def batched_inverse(m: torch.Tensor) -> torch.Tensor:
     """Inverse of a batch of SPD matrices (B, n, n) through the CUDA
-    Gauss-Jordan kernel (csrc/gj_inverse.cu); plain version on the CPU."""
-    if m.ndim != 3 or m.shape[1] != m.shape[2]:
-        raise ValueError(f"batched_inverse: expected (B, n, n), got "
-                         f"{tuple(m.shape)}")
-    if not _on_card(m):
-        return batched_inverse_plain(m)
-    b, n, _ = m.shape
-    _check("m", m, (b, n, n), m.device)
-    if (2 * n * n + 3 * n) * 4 > MAX_SMEM_BYTES:
-        raise ValueError(f"batched_inverse: n={n} exceeds shared memory")
-    out = torch.empty_like(m)
-    rc = _fn("gj_inverse")(m.data_ptr(), out.data_ptr(), b, n,
-                           torch.cuda.current_stream(m.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"gj_inverse launch failed: CUDA error {rc}")
-    launches["batched_inverse"] += 1
-    return out
+    Gauss-Jordan kernel (csrc/gj_inverse.cu), n <= 169 (M, its inverse
+    and three n-vectors in shared memory); plain version on the CPU."""
+    return _inverse(m, "batched_inverse", "gj_inverse",
+                    batched_inverse_plain, GJ_N_MAX)
+
+
+def batched_inverse_small_plain(m: torch.Tensor) -> torch.Tensor:
+    """The plain version of K3: the same pivot loop as
+    :func:`batched_inverse_plain` (the TPU kernels share their body)."""
+    return batched_inverse_plain(m)
+
+
+def batched_inverse_small(m: torch.Tensor) -> torch.Tensor:
+    """Inverse of a batch of small SPD matrices (B, n, n), n <= 128,
+    through the CUDA kernel sized for several matrices per SM
+    (csrc/gj_inverse_small.cu); plain version on the CPU."""
+    return _inverse(m, "batched_inverse_small", "gj_inverse_small",
+                    batched_inverse_small_plain, SMALL_N_MAX)
+
+
+def batched_inverse_small_occupancy(n: int) -> int:
+    """K3 blocks (matrices of size n) that fit on one SM at once, by
+    CUDA's occupancy calculator."""
+    blocks = _fn("gj_inverse_small", "occupancy", [ctypes.c_int])(n)
+    if blocks < 0:
+        raise RuntimeError(f"gj_inverse_small occupancy: CUDA error "
+                           f"{-blocks}")
+    return blocks
 
 
 # --- K2: fused shared-basis ADMM -----------------------------------------
@@ -219,4 +261,60 @@ def fused_admm_shared(a0, a1, minv, mu, d, e, qs, ls, us, rho_vec, x0, y0,
         raise RuntimeError(f"fused_admm_shared launch failed: CUDA error "
                            f"{rc}")
     launches["fused_admm_shared"] += 1
+    return x, y, z
+
+
+# --- K4: fused ADMM, per-scenario A -------------------------------------
+
+def fused_admm_plain(minv, a_s, qs, ls, us, rho_vec, x0, y0, z0, *,
+                     iters: int, sigma: float, alpha: float):
+    """``iters`` scaled-space ADMM iterations with a per-scenario A_s;
+    the x-update reduces along minv's rows (minv @ rhs)."""
+    inv_rho = 1.0 / rho_vec
+    x, y, z = x0, y0, z0
+    for _ in range(iters):
+        w = rho_vec * z - y
+        rhs = sigma * x - qs + torch.einsum("bmn,bm->bn", a_s, w)
+        xt = torch.einsum("bij,bj->bi", minv, rhs)
+        x1 = alpha * xt + (1.0 - alpha) * x
+        ax = torch.einsum("bmn,bn->bm", a_s, xt)
+        zp = alpha * ax + (1.0 - alpha) * z
+        z1 = torch.clamp(zp + y * inv_rho, ls, us)
+        y = y + rho_vec * (zp - z1)
+        x, z = x1, z1
+    return x, y, z
+
+
+def fused_admm(minv, a_s, qs, ls, us, rho_vec, x0, y0, z0, *, iters: int,
+               sigma: float = 1e-6, alpha: float = 1.6):
+    """Batched fixed-iteration ADMM in the scaled space through the CUDA
+    kernel (csrc/fused_admm.cu): minv (B, n, n) scaled-KKT inverse (not
+    assumed symmetric); a_s (B, m, n) scaled constraint matrix; qs, x0
+    (B, n); ls, us, rho_vec, y0, z0 (B, m). Returns scaled (x, y, z).
+    Plain version on the CPU."""
+    b, n = qs.shape
+    m = ls.shape[1]
+    if not _on_card(qs):
+        return fused_admm_plain(minv, a_s, qs, ls, us, rho_vec, x0, y0, z0,
+                                iters=iters, sigma=sigma, alpha=alpha)
+    dev = qs.device
+    for name, t, shape in (
+            ("minv", minv, (b, n, n)), ("a_s", a_s, (b, m, n)),
+            ("qs", qs, (b, n)), ("ls", ls, (b, m)), ("us", us, (b, m)),
+            ("rho_vec", rho_vec, (b, m)), ("x0", x0, (b, n)),
+            ("y0", y0, (b, m)), ("z0", z0, (b, m))):
+        _check(name, t, shape, dev)
+    if (n * n + m * n + 4 * n + 7 * m) * 4 > MAX_SMEM_BYTES:
+        raise ValueError(f"fused_admm: n={n}, m={m} exceed shared memory")
+    x = torch.empty_like(qs)
+    y = torch.empty_like(ls)
+    z = torch.empty_like(ls)
+    ptrs = [t.data_ptr() for t in (minv, a_s, qs, ls, us, rho_vec, x0, y0,
+                                   z0, x, y, z)]
+    rc = _fn("fused_admm")(
+        *ptrs, b, n, m, int(iters), float(sigma), float(alpha),
+        float(1.0 - alpha), torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_admm launch failed: CUDA error {rc}")
+    launches["fused_admm"] += 1
     return x, y, z

@@ -1,11 +1,14 @@
 """OSQP-semantics ADMM pieces of the batched MPC solve (counterpart of
 the matching subset of ``ops/qp.py``): settings, solution and scaling
 types, modified Ruiz equilibration, per-instance cost rescaling, the
-per-constraint stepsize vector, the block-diagonal scaled KKT assembly
-and the host side of the fused shared-basis ADMM kernel.
+per-constraint stepsize vector, the scaled KKT assembly (dense and
+block-diagonal), the contact-pattern-reduced KKT inverse, and the host
+side of the two fused ADMM kernels.
 
-Solves  minimize 1/2 x'Px + q'x  s.t.  l <= Ax <= u  with A = A0 + mu A1
-(the friction-cone structure), every operand batched over scenarios.
+Solves  minimize 1/2 x'Px + q'x  s.t.  l <= Ax <= u, every operand
+batched over scenarios: with A = A0 + mu A1 (the friction-cone
+structure, never materialized) on the shared-basis solve, with a
+materialized per-scenario A on the legacy one.
 """
 
 from __future__ import annotations
@@ -14,8 +17,13 @@ import dataclasses
 
 import torch
 
-from a1_qp_mpc_controller_tpu_torch.ops.kernels import fused_admm_shared
-from a1_qp_mpc_controller_tpu_torch.tensors import tensorclass
+from a1_qp_mpc_controller_tpu_torch.ops.kernels import (
+    batched_inverse, batched_inverse_small, fused_admm, fused_admm_shared,
+)
+from a1_qp_mpc_controller_tpu_torch.tensors import (
+    host_bool, tensorclass, top_k_indices,
+)
+from a1_qp_mpc_controller_tpu_torch.utils import mathx
 
 MIN_SCALING = 1e-4
 MAX_SCALING = 1e4
@@ -61,6 +69,30 @@ class Scaling:
     d: torch.Tensor
     e: torch.Tensor
     c: torch.Tensor
+
+
+@tensorclass
+class ScaledProblem:
+    """A problem after equilibration, with the scaling that made it."""
+
+    P: torch.Tensor     # (B,n,n)
+    q: torch.Tensor     # (B,n)
+    A: torch.Tensor     # (B,m,n)
+    l: torch.Tensor     # (B,m)
+    u: torch.Tensor     # (B,m)
+    d: torch.Tensor     # (B,n)
+    e: torch.Tensor     # (B,m)
+    c: torch.Tensor     # (B,)
+
+
+def apply_scaling(P, q, A, l, u, s: Scaling) -> ScaledProblem:
+    """Apply a precomputed (d, e, c) in one pass."""
+    d, e, c = s.d, s.e, s.c
+    return ScaledProblem(
+        P=(c[:, None, None] * P) * (d[:, :, None] * d[:, None, :]),
+        q=c[:, None] * d * q,
+        A=A * (e[:, :, None] * d[:, None, :]),
+        l=e * l, u=e * u, d=d, e=e, c=c)
 
 
 def _limit(v: torch.Tensor) -> torch.Tensor:
@@ -121,6 +153,83 @@ def _rho_vec(l: torch.Tensor, u: torch.Tensor, rho: torch.Tensor,
     return torch.clamp(rv, RHO_MIN, RHO_MAX)
 
 
+def _kkt_matrix(P: torch.Tensor, A: torch.Tensor, rho_vec: torch.Tensor,
+                sigma: float) -> torch.Tensor:
+    """P + sigma I + A' diag(rho) A, batched."""
+    n = P.shape[-1]
+    eye = torch.eye(n, dtype=P.dtype, device=P.device)
+    return P + sigma * eye + (A.transpose(-1, -2) * rho_vec[:, None, :]) @ A
+
+
+def scaled_kkt_matrix(P, q, A, l, u, settings: QPSettings,
+                      rho0: torch.Tensor, scaling: Scaling) -> torch.Tensor:
+    """The scaled KKT matrix the solve factorizes, for callers that
+    invert it outside the solve and pass the inverse back as
+    ``kkt_inv`` (same settings, rho0 and scaling)."""
+    sp = apply_scaling(P, q, A, l, u, scaling)
+    rho_vec = _rho_vec(sp.l, sp.u, rho0, settings.rho_eq_scale)
+    return _kkt_matrix(sp.P, sp.A, rho_vec, settings.sigma)
+
+
+def live_first(live: torch.Tensor, k: int) -> torch.Tensor:
+    """(B, k) indices of the first ``k`` entries of a live-first stable
+    permutation of each row of the (B, N) mask ``live``."""
+    order = torch.argsort(torch.where(live, 0, 1), dim=1, stable=True)
+    return order[:, :k]
+
+
+def gather_square(m: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """m[b][idx[b]][:, idx[b]] for each b: (B, N, N) -> (B, k, k)."""
+    rows = torch.arange(m.shape[0], device=m.device)[:, None, None]
+    return m[rows, idx[:, :, None], idx[:, None, :]]
+
+
+def reduced_kkt_inverse(m_b: torch.Tensor, live: torch.Tensor,
+                        n_r: int = 64, big_capacity: int = 256
+                        ) -> torch.Tensor:
+    """Inverse of the swing-eliminated KKT family by contact-pattern
+    shape reduction: live and dead variables do not couple, and the
+    dead part is 3x3 block-diagonal, so K^-1 is the scattered inverse of
+    the gathered live block (K3 at n_r x n_r) plus closed-form inverses
+    of the dead 3x3 blocks. Scenarios with more than ``n_r`` live
+    variables are inverted at full size (K1) in a ``big_capacity``
+    bucket; when more than ``big_capacity`` of them exist, the whole
+    batch is (one host read, the ``lax.cond`` of the JAX package).
+
+    ``live``: (B, n) bool stance-variable mask; n % 3 == 0."""
+    b, n, _ = m_b.shape
+    assert n % 3 == 0
+    dtype = m_b.dtype
+    if big_capacity >= b or n_r >= n:
+        return batched_inverse(m_b)
+    n_live = torch.sum(live, dim=1)
+    if host_bool(torch.sum(n_live > n_r) > big_capacity):
+        return batched_inverse(m_b)
+    # for n_live < n_r the tail of the gather picks up dead entries,
+    # whose junk inverse is masked out below
+    idx = live_first(live, n_r)
+    rows = torch.arange(b, device=m_b.device)[:, None, None]
+    l_inv = batched_inverse_small(gather_square(m_b, idx))
+    out = torch.zeros_like(m_b)
+    out[rows, idx[:, :, None], idx[:, None, :]] = l_inv
+    lm = live.to(dtype)
+    out = out * (lm[:, :, None] * lm[:, None, :])
+    # dead 3x3 diagonal blocks, closed-form inverse, placed back
+    nblk = n // 3
+    diag_blocks = torch.diagonal(m_b.reshape(b, nblk, 3, nblk, 3),
+                                 dim1=1, dim2=3).permute(0, 3, 1, 2)
+    dead_blk = (~live[:, ::3]).to(dtype)
+    dinv = mathx.inv3_spd(diag_blocks) * dead_blk[:, :, None, None]
+    eye_t = torch.eye(nblk, dtype=dtype, device=m_b.device)
+    out = out + (dinv[:, :, :, None, :]
+                 * eye_t[None, :, None, :, None]).reshape(b, n, n)
+    # full-size bucket: the big_capacity scenarios with the most live
+    # variables (every n_live > n_r scenario, the overflow aside)
+    big_idx = top_k_indices(n_live, big_capacity)
+    out[big_idx] = batched_inverse(m_b[big_idx])
+    return out
+
+
 def scaled_kkt_matrix_blockdiag(P: torch.Tensor, base_blk: torch.Tensor,
                                 slope_blk: torch.Tensor, mu: torch.Tensor,
                                 l: torch.Tensor, u: torch.Tensor,
@@ -173,6 +282,78 @@ def _atmul(a0, a1, mu, w):     # (B,m) -> (B,n): (A0 + mu A1)' w
     return w @ a0 + (mu[:, None] * w) @ a1
 
 
+def _inf(v: torch.Tensor) -> torch.Tensor:
+    return torch.amax(torch.abs(v), dim=1)
+
+
+def _rho_estimate(Ps, qs, As, x, y, z, rho):
+    """OSQP's compute_rho_estimate on scaled iterates (no 5x threshold),
+    batched: (B,) from per-scenario ``rho``."""
+    ax = torch.einsum("bmn,bn->bm", As, x)
+    px = torch.einsum("bij,bj->bi", Ps, x)
+    aty = torch.einsum("bmn,bm->bn", As, y)
+    div_tol = 1e-12
+    rp_rel = _inf(ax - z) / torch.clamp(
+        torch.maximum(_inf(ax), _inf(z)), min=div_tol)
+    rd_rel = _inf(px + qs + aty) / torch.clamp(torch.maximum(
+        torch.maximum(_inf(px), _inf(aty)), _inf(qs)), min=div_tol)
+    return torch.clamp(
+        rho * torch.sqrt(rp_rel / torch.clamp(rd_rel, min=div_tol)),
+        RHO_MIN, RHO_MAX)
+
+
+def legacy_admm_operands(sp: ScaledProblem, settings: QPSettings,
+                         x0: torch.Tensor, y0: torch.Tensor,
+                         rho0: torch.Tensor, kkt_inv: torch.Tensor) -> dict:
+    """The fused ADMM kernel's (K4's) operands for a scaled problem: the
+    scaled warm start and per-constraint rho, keyed by the kernel's
+    argument names."""
+    xs = x0 / sp.d
+    return dict(
+        minv=kkt_inv, a_s=sp.A, qs=sp.q, ls=sp.l, us=sp.u,
+        rho_vec=_rho_vec(sp.l, sp.u, rho0, settings.rho_eq_scale),
+        x0=xs, y0=sp.c[:, None] * y0 / sp.e,
+        z0=torch.clamp(torch.einsum("bmn,bn->bm", sp.A, xs), sp.l, sp.u))
+
+
+def admm_solve_fixed_batched(P: torch.Tensor, q: torch.Tensor,
+                             A: torch.Tensor, l: torch.Tensor,
+                             u: torch.Tensor, iters: int,
+                             settings: QPSettings, x0: torch.Tensor,
+                             y0: torch.Tensor, rho0: torch.Tensor,
+                             scaling: Scaling,
+                             kkt_inv: torch.Tensor) -> QPSolution:
+    """Batched fixed-iteration solve with a materialized per-scenario A
+    through the fused ADMM kernel (ops/kernels.fused_admm): scaling and
+    warm start, the kernel, then unscale, unscaled residuals,
+    convergence and the rho estimate. ``kkt_inv`` inverts
+    :func:`scaled_kkt_matrix` at the same settings, rho0 and scaling."""
+    s = settings
+    sp = apply_scaling(P, q, A, l, u, scaling)
+    x, y, z = fused_admm(**legacy_admm_operands(sp, s, x0, y0, rho0,
+                                                kkt_inv),
+                         iters=iters, sigma=s.sigma, alpha=s.alpha)
+
+    xu = sp.d * x
+    yu = y * sp.e / sp.c[:, None]
+    zu = z / sp.e
+    ax = torch.einsum("bmn,bn->bm", A, xu)
+    px = torch.einsum("bij,bj->bi", P, xu)
+    aty = torch.einsum("bmn,bm->bn", A, yu)
+    rp = _inf(ax - zu)
+    rd = _inf(px + q + aty)
+    eps_prim = s.eps_abs + s.eps_rel * torch.maximum(_inf(ax), _inf(zu))
+    eps_dual = s.eps_abs + s.eps_rel * torch.maximum(
+        torch.maximum(_inf(px), _inf(aty)), _inf(q))
+    return QPSolution(
+        x=xu, y=yu, z=zu,
+        iters=torch.full((P.shape[0],), iters, dtype=torch.int32,
+                         device=P.device),
+        prim_res=rp, dual_res=rd,
+        converged=(rp <= eps_prim) & (rd <= eps_dual),
+        rho=_rho_estimate(sp.P, sp.q, sp.A, x, y, z, rho0))
+
+
 def admm_solve_fixed_batched_shared(
         P: torch.Tensor, q: torch.Tensor, a0: torch.Tensor, a1: torch.Tensor,
         mu: torch.Tensor, l: torch.Tensor, u: torch.Tensor, iters: int,
@@ -201,21 +382,20 @@ def admm_solve_fixed_batched_shared(
     ax = amul(xu)
     px = torch.einsum("bij,bj->bi", P, xu)
     aty = atmul(yu)
-    inf_b = lambda v: torch.amax(torch.abs(v), dim=1)
-    rp = inf_b(ax - zu)
-    rd = inf_b(px + q + aty)
-    eps_prim = s.eps_abs + s.eps_rel * torch.maximum(inf_b(ax), inf_b(zu))
+    rp = _inf(ax - zu)
+    rd = _inf(px + q + aty)
+    eps_prim = s.eps_abs + s.eps_rel * torch.maximum(_inf(ax), _inf(zu))
     eps_dual = s.eps_abs + s.eps_rel * torch.maximum(
-        torch.maximum(inf_b(px), inf_b(aty)), inf_b(q))
+        torch.maximum(_inf(px), _inf(aty)), _inf(q))
 
     ax_s = e * amul(d * x)
     px_s = torch.einsum("bij,bj->bi", Ps, x)
     aty_s = d * atmul(e * y)
     div_tol = 1e-12
-    rp_rel = inf_b(ax_s - z) / torch.clamp(
-        torch.maximum(inf_b(ax_s), inf_b(z)), min=div_tol)
-    rd_rel = inf_b(px_s + qs + aty_s) / torch.clamp(torch.maximum(
-        torch.maximum(inf_b(px_s), inf_b(aty_s)), inf_b(qs)), min=div_tol)
+    rp_rel = _inf(ax_s - z) / torch.clamp(
+        torch.maximum(_inf(ax_s), _inf(z)), min=div_tol)
+    rd_rel = _inf(px_s + qs + aty_s) / torch.clamp(torch.maximum(
+        torch.maximum(_inf(px_s), _inf(aty_s)), _inf(qs)), min=div_tol)
     rho_est = torch.clamp(
         rho0 * torch.sqrt(rp_rel / torch.clamp(rd_rel, min=div_tol)),
         RHO_MIN, RHO_MAX)

@@ -1,16 +1,35 @@
-"""Batched closed-loop MPC tick (counterpart of the main-path subset of
+"""Batched closed-loop MPC tick (counterpart of the batched subset of
 ``parallel/batched.py``): batched build, the hoisted solve through the
 Gauss-Jordan and fused-ADMM kernels (ops/kernels.py), batched finish and
 the plant step.
 
-Routes: ``admm_backend='pallas_shared'`` (the shared-basis fused ADMM;
-the name is the JAX package's) with ``kkt_backend`` 'gj' (per-tick
-refactor) or 'amortized' (cross-tick amortized factorization).
+Routes, as ``batched_control_tick`` selects them:
+
+- ``admm_backend='pallas_shared'`` (the shared-basis fused ADMM, K2; the
+  names are the JAX package's) with ``kkt_backend``
+  - 'gj': per-tick refactor (K1) and an inline flip-rescue pass;
+  - 'reduced': the same, with the inverse by contact-pattern shape
+    reduction (``ops/qp.reduced_kkt_inverse``: K3 on the live block, K1
+    on the big bucket);
+  - 'amortized': cross-tick amortized factorization (K1 on the refreshed
+    subset, a Neumann correction for the rest);
+  - 'reduced_admm': the whole solve (K3 inverse and K2 ADMM) at the
+    gathered stance-block shape, a full-size big bucket, two
+    rho-refactored rescue rounds per tier. At ``kkt_reduced_nr`` >= the
+    variable count (the bench's 'full' candidate, 128) it is the
+    full-size solve with the same rescue and the round-robin polish;
+- ``admm_backend='pallas'`` (legacy): a materialized per-scenario A, the
+  scaled KKT inverted by K1 (``use_pallas``) or ``torch.linalg.inv``,
+  the ADMM in K4; no rescue.
 
 Where the JAX package branches on device with ``lax.cond``, this module
-branches in Python on a device scalar: each such branch is one host
-sync, counted in ``host_syncs`` (4 per amortized tick with the rescue
-pool on, 0 on 'gj').
+branches in Python on a device scalar (``tensors.host_bool``): each such
+branch is one host sync, counted in ``tensors.host_syncs``. Reads per
+tick with the rescue pool on and the polish off: 'gj' 0, 'pallas' 0,
+'reduced' 1 (the overflow test), 'amortized' 4, 'reduced_admm' at the
+full size 1 (the straggler round), on the reduced tier 3 (overflow, one
+straggler round per tier) or 2 on a tick that overflows to the full
+size.
 """
 
 from __future__ import annotations
@@ -24,35 +43,17 @@ from a1_qp_mpc_controller_tpu_torch.control.controller import (
 )
 from a1_qp_mpc_controller_tpu_torch.models import srb
 from a1_qp_mpc_controller_tpu_torch.ops import qp as qpx
-from a1_qp_mpc_controller_tpu_torch.ops.kernels import batched_inverse
+from a1_qp_mpc_controller_tpu_torch.ops.kernels import (
+    batched_inverse, batched_inverse_small,
+)
 from a1_qp_mpc_controller_tpu_torch.sim import closed_loop as cl
 from a1_qp_mpc_controller_tpu_torch.sim import plant as plant_mod
 from a1_qp_mpc_controller_tpu_torch.sim import terrain as terrain_mod
 from a1_qp_mpc_controller_tpu_torch.tensors import (
-    CUDA, broadcast_batch, check_on, const, resolve_device, tensorclass,
-    tree_map, where_b,
+    CUDA, broadcast_batch, check_on, const, host_bool, resolve_device,
+    tensorclass, top_k_indices, tree_map, where_b,
 )
 from a1_qp_mpc_controller_tpu_torch.types import JoyCmd
-
-host_syncs = 0
-
-
-def _host_bool(flag: torch.Tensor) -> bool:
-    """Read a device boolean on the host (the ``lax.cond`` predicate)."""
-    global host_syncs
-    host_syncs += 1
-    return bool(flag)
-
-
-def top_k_indices(score: torch.Tensor, k: int) -> torch.Tensor:
-    """Indices of the ``k`` largest scores with ties to the lower index,
-    the order ``jax.lax.top_k`` gives (``torch.topk`` promises none).
-    The indices come from a sort of ``score`` itself, so every gather by
-    them is in range (``jnp.take`` would clamp, torch indexing would
-    fail); ``k`` is checked here, on the host."""
-    if not 0 < k <= score.shape[0]:
-        raise ValueError(f"top {k} of {score.shape[0]} scores")
-    return torch.sort(score, descending=True, stable=True).indices[:k]
 
 
 def _take(tree, idx: torch.Tensor):
@@ -69,14 +70,32 @@ def _merge(sol, sol_r, idx: torch.Tensor, sel: torch.Tensor):
     return tree_map(one, sol, sol_r)
 
 
+def _put(tree, idx: torch.Tensor, new_tree):
+    """``orig.at[idx].set(new)`` leafwise."""
+    def one(orig, new):
+        out = orig.clone()
+        out[idx] = new
+        return out
+    return tree_map(one, tree, new_tree)
+
+
 def _gathered_rescue(sol, p_of, q_of, l_of, u_of, scal_of, a0, a1, mu_v,
-                     settings, *, cap: int, rescue_iters: int, rho0_base,
-                     base_blk, slope_blk):
-    """Gather the worst ``cap`` unconverged scenarios, refactor their KKT
-    at the first pass's clamped rho estimate, continue ``rescue_iters``
-    iterations and scatter the result back into every unconverged slot
-    (converged slots fill the pool only and keep their solution)."""
+                     small_inverse, settings, *, cap: int,
+                     rescue_iters: int, rescue_flag, rho0_base, base_blk,
+                     slope_blk, eligible=None,
+                     unconverged_only: bool = False):
+    """Rank the scenarios that are unconverged (or, unless
+    ``unconverged_only``, rescue-flagged) among the ``eligible``, gather
+    the worst ``cap``, refactor their KKT (``small_inverse``) at the
+    first pass's clamped rho estimate where unconverged (flagged but
+    converged ones keep ``rho0_base``), continue ``rescue_iters``
+    iterations and scatter back where the rescue was needed and does
+    not worsen the residual picture."""
     need = ~sol.converged
+    if not unconverged_only:
+        need = need | rescue_flag
+    if eligible is not None:
+        need = need & eligible
     score = need.to(q_of.dtype) * (
         1.0 + torch.maximum(sol.prim_res, sol.dual_res))
     cap = min(cap, score.shape[0])
@@ -92,8 +111,11 @@ def _gathered_rescue(sol, p_of, q_of, l_of, u_of, scal_of, a0, a1, mu_v,
     sol_r = qpx.admm_solve_fixed_batched_shared(
         p_of[ridx], q_of[ridx], a0, a1, mu_v[ridx], l_of[ridx], u_of[ridx],
         rescue_iters, settings, sol.x[ridx], sol.y[ridx], rho_r, scal_r,
-        batched_inverse(m_r))
-    return _merge(sol, sol_r, ridx, ~conv_g)
+        small_inverse(m_r))
+    res_o = torch.maximum(sol.prim_res[ridx], sol.dual_res[ridx])
+    res_n = torch.maximum(sol_r.prim_res, sol_r.dual_res)
+    sel = need[ridx] & (~conv_g | sol_r.converged | (res_n < res_o))
+    return _merge(sol, sol_r, ridx, sel)
 
 
 def _gathered_polish(sol, p_of, q_of, l_of, u_of, scal_of, a0, a1, mu_v,
@@ -182,7 +204,7 @@ def _amortized_full_solve(cfg: A1Config, prob, scal_new, mu, settings,
     capacity = min(capacity, b)
     stale_max = max(16, 4 * b // capacity)
     must = prob.flipped | (kcarry.age >= stale_max)
-    if _host_bool(torch.sum(must.to(torch.int32)) > capacity):
+    if host_bool(torch.sum(must.to(torch.int32)) > capacity):
         m_b = qpx.scaled_kkt_matrix_blockdiag(
             prob.p_mat, base_blk, slope_blk, mu, prob.lb, prob.ub,
             settings, prob.rho0, scal_new)
@@ -200,17 +222,10 @@ def _amortized_full_solve(cfg: A1Config, prob, scal_new, mu, settings,
             prob.ub[ridx], settings, prob.rho0[ridx], scal_g)
         minv_g = batched_inverse(m_g)
 
-        def put(old, new):
-            out = old.clone()
-            out[ridx] = new
-            return out
-
-        kcarry = KktCarry(
-            minv=put(kcarry.minv, minv_g), m_mat=put(kcarry.m_mat, m_g),
-            d=put(kcarry.d, scal_g.d), e=put(kcarry.e, scal_g.e),
-            c=put(kcarry.c, scal_g.c), rho=put(kcarry.rho, prob.rho0[ridx]),
-            age=put(kcarry.age + 1, torch.zeros_like(ridx,
-                                                     dtype=torch.int32)))
+        kcarry = _put(kcarry.replace(age=kcarry.age + 1), ridx, KktCarry(
+            minv=minv_g, m_mat=m_g, d=scal_g.d, e=scal_g.e, c=scal_g.c,
+            rho=prob.rho0[ridx],
+            age=torch.zeros_like(ridx, dtype=torch.int32)))
     scal_used = qpx.Scaling(d=kcarry.d, e=kcarry.e, c=kcarry.c)
     rho_used = kcarry.rho
 
@@ -243,19 +258,21 @@ def _amortized_full_solve(cfg: A1Config, prob, scal_new, mu, settings,
         due_acc = prob.rescue_flag & sol.converged
         sol, taken = cont(sol, due_acc)
         due_left = due_acc & ~taken
-        if _host_bool(torch.any(due_left)):
+        if host_bool(torch.any(due_left)):
             sol, _ = cont(sol, due_left)
 
         # (b) rho-refactored rescue of unconverged scenarios, skipped on
         # all-converged ticks, then a smaller straggler round
         for cap in (max(16, rescue_capacity // 2),
                     max(8, rescue_capacity // 4)):
-            if not _host_bool(torch.all(sol.converged)):
+            if not host_bool(torch.all(sol.converged)):
                 sol = _gathered_rescue(
                     sol, prob.p_mat, prob.q_vec, prob.lb, prob.ub,
-                    scal_used, a0f, a1f, mu, settings, cap=cap,
-                    rescue_iters=rescue_iters, rho0_base=rho_used,
-                    base_blk=base_blk, slope_blk=slope_blk)
+                    scal_used, a0f, a1f, mu, batched_inverse, settings,
+                    cap=cap, rescue_iters=rescue_iters,
+                    rescue_flag=prob.rescue_flag, rho0_base=rho_used,
+                    base_blk=base_blk, slope_blk=slope_blk,
+                    unconverged_only=True)
     if polish_due is not None:
         due = polish_due & ~prob.rescue_flag
         cap_p = max(1, -(-b // cfg.mpc_polish_every))
@@ -266,10 +283,11 @@ def _amortized_full_solve(cfg: A1Config, prob, scal_new, mu, settings,
     return sol, kcarry
 
 
-def _gj_solve(cfg: A1Config, prob, scal, mu, settings, *,
+def _gj_solve(cfg: A1Config, prob, scal, mu, settings, kkt_inverse, *,
               rescue_capacity: int, rescue_iters: int):
-    """Per-tick refactor: Gauss-Jordan inverse of every scenario's scaled
-    KKT, the fused ADMM, and a flip-rescue continuation of the worst
+    """Per-tick refactor: ``kkt_inverse`` of every scenario's scaled KKT
+    ('gj': K1; 'reduced': the contact-pattern-reduced inverse), the fused
+    ADMM, and a flip-rescue continuation of the worst
     ``rescue_capacity`` unconverged or flagged scenarios."""
     dtype, dev = prob.q_vec.dtype, prob.q_vec.device
     a0, a1 = srb.friction_constraint_basis(cfg.horizon, dtype, dev)
@@ -277,7 +295,7 @@ def _gj_solve(cfg: A1Config, prob, scal, mu, settings, *,
     m_b = qpx.scaled_kkt_matrix_blockdiag(
         prob.p_mat, base_blk, slope_blk, mu, prob.lb, prob.ub, settings,
         prob.rho0, scal)
-    minv = batched_inverse(m_b)
+    minv = kkt_inverse(m_b)
     sol = qpx.admm_solve_fixed_batched_shared(
         prob.p_mat, prob.q_vec, a0, a1, mu, prob.lb, prob.ub,
         cfg.mpc_qp_iters, settings, prob.warm_x, prob.warm_y, prob.rho0,
@@ -301,10 +319,205 @@ def _gj_solve(cfg: A1Config, prob, scal, mu, settings, *,
     return sol
 
 
+@tensorclass
+class LiveBlocks:
+    """A problem gathered to its first ``n_rb`` live (step, leg) blocks,
+    live-first in block order: 3 variables and 5 constraint rows each."""
+
+    var_idx: torch.Tensor    # (B, 3 n_rb) variable indices
+    row_idx: torch.Tensor    # (B, 5 n_rb) constraint-row indices
+    p: torch.Tensor
+    q: torch.Tensor
+    l: torch.Tensor
+    u: torch.Tensor
+    warm_x: torch.Tensor
+    warm_y: torch.Tensor
+    scal: qpx.Scaling
+
+
+def gather_live_blocks(prob, scal, live_blk: torch.Tensor,
+                       n_rb: int) -> LiveBlocks:
+    """Gather ``prob`` (and its scaling) to the live-first ``n_rb``
+    blocks of the (B, 4H) step-major block mask ``live_blk``; a scenario
+    with fewer live blocks picks up dead ones at the tail."""
+    b = live_blk.shape[0]
+    dev = live_blk.device
+    idxb = qpx.live_first(live_blk, n_rb)
+    var_idx = (3 * idxb[:, :, None]
+               + torch.arange(3, device=dev)).reshape(b, 3 * n_rb)
+    row_idx = (5 * idxb[:, :, None]
+               + torch.arange(5, device=dev)).reshape(b, 5 * n_rb)
+    tv = lambda a: torch.gather(a, 1, var_idx)
+    tr = lambda a: torch.gather(a, 1, row_idx)
+    return LiveBlocks(
+        var_idx=var_idx, row_idx=row_idx,
+        p=qpx.gather_square(prob.p_mat, var_idx), q=tv(prob.q_vec),
+        l=tr(prob.lb), u=tr(prob.ub), warm_x=tv(prob.warm_x),
+        warm_y=tr(prob.warm_y),
+        scal=qpx.Scaling(d=tv(scal.d), e=tr(scal.e), c=scal.c))
+
+
+def _reduced_shared_solve(cfg: A1Config, prob, scal, mu, contacts,
+                          settings, *, reduced_blocks: int,
+                          big_capacity: int, rescue_capacity: int,
+                          rescue_iters: int, polish_due=None):
+    """The whole solve (KKT inverse and fused ADMM) at the gathered
+    stance-block shape: a trot's 22 live blocks are 66 variables and 110
+    rows instead of 40 blocks, 120 and 200. Exact, not approximate: dead
+    (swing) variables have no cost coupling, unit P diagonal, zero q and
+    loosened rows, and a dead variable warm-started at 0 stays 0 through
+    every ADMM iteration, so dropping it changes no live iterate; the
+    gathered blocks keep the shared constraint basis at the reduced
+    block count.
+
+    Scenarios with more than ``reduced_blocks`` live blocks (3-4 stance
+    legs) are solved at full size in a ``big_capacity`` bucket and
+    scattered in; when more than ``big_capacity`` of them exist, the
+    whole batch takes the full-size path (one host read). Each tier
+    runs two rho-refactored rescue rounds (``_gathered_rescue``), the
+    second only when a scenario is still unconverged (one host read
+    each). The full-size path also carries the round-robin polish."""
+    b, n = prob.q_vec.shape
+    m_rows = prob.lb.shape[1]
+    h = cfg.horizon
+    dtype, dev = prob.q_vec.dtype, prob.q_vec.device
+    nblk = n // 3
+    n_rb = min(reduced_blocks, nblk)
+    base_blk, slope_blk = srb.friction_basis_blocks(dtype, dev)
+    a0f, a1f = srb.friction_constraint_basis(h, dtype, dev)
+    iters = cfg.mpc_qp_iters
+
+    live_blk = srb.tile_last(contacts, h)            # (B, 4H) step-major
+    n_live_blk = torch.sum(live_blk, dim=1)
+
+    def rescue(sol, p_of, q_of, l_of, u_of, scal_of, a0, a1, mu_v,
+               small_inverse, cap=None, unconverged_only=False,
+               rescue_flag=None, rho0_base=None, eligible=None):
+        """``_gathered_rescue`` at this solve's settings; ``rescue_flag``
+        and ``rho0_base`` default to the full batch's."""
+        return _gathered_rescue(
+            sol, p_of, q_of, l_of, u_of, scal_of, a0, a1, mu_v,
+            small_inverse, settings,
+            cap=min(cap or rescue_capacity, sol.x.shape[0]),
+            rescue_iters=rescue_iters,
+            rescue_flag=(prob.rescue_flag if rescue_flag is None
+                         else rescue_flag),
+            rho0_base=prob.rho0 if rho0_base is None else rho0_base,
+            base_blk=base_blk, slope_blk=slope_blk, eligible=eligible,
+            unconverged_only=unconverged_only)
+
+    def full_path():
+        m_b = qpx.scaled_kkt_matrix_blockdiag(
+            prob.p_mat, base_blk, slope_blk, mu, prob.lb, prob.ub,
+            settings, prob.rho0, scal)
+        minv = batched_inverse(m_b)
+        sol = qpx.admm_solve_fixed_batched_shared(
+            prob.p_mat, prob.q_vec, a0f, a1f, mu, prob.lb, prob.ub,
+            iters, settings, prob.warm_x, prob.warm_y, prob.rho0, scal,
+            minv)
+        if rescue_capacity > 0:
+            full = (prob.p_mat, prob.q_vec, prob.lb, prob.ub, scal, a0f,
+                    a1f, mu, batched_inverse)
+            sol = rescue(sol, *full)
+            if not host_bool(torch.all(sol.converged)):
+                sol = rescue(sol, *full, cap=max(8, rescue_capacity // 4),
+                             unconverged_only=True)
+        if polish_due is not None:
+            due = polish_due & ~prob.rescue_flag
+            cap_p = max(1, -(-b // cfg.mpc_polish_every))
+            sol, _ = _gathered_polish(
+                sol, prob.p_mat, prob.q_vec, prob.lb, prob.ub, scal, a0f,
+                a1f, mu, minv, prob.rho0, settings, due=due, cap=cap_p,
+                iters=cfg.mpc_polish_iters)
+        return sol
+
+    def reduced_path():
+        r = gather_live_blocks(prob, scal, live_blk, n_rb)
+        p_r, q_r, l_r, u_r, scal_r = r.p, r.q, r.l, r.u, r.scal
+        m_r = qpx.scaled_kkt_matrix_blockdiag(
+            p_r, base_blk, slope_blk, mu, l_r, u_r, settings, prob.rho0,
+            scal_r)
+        a0r, a1r = srb.friction_constraint_basis_nblk(n_rb, dtype, dev)
+        sol_r = qpx.admm_solve_fixed_batched_shared(
+            p_r, q_r, a0r, a1r, mu, l_r, u_r, iters, settings, r.warm_x,
+            r.warm_y, prob.rho0, scal_r, batched_inverse_small(m_r))
+        if rescue_capacity > 0:
+            # big-bucket scenarios are not eligible: their reduced result
+            # is overwritten below, and they would starve the tier's own
+            # stragglers of slots
+            red = (p_r, q_r, l_r, u_r, scal_r, a0r, a1r, mu,
+                   batched_inverse_small)
+            red_tier = n_live_blk <= n_rb
+            sol_r = rescue(sol_r, *red, eligible=red_tier)
+            if not host_bool(torch.all(sol_r.converged | ~red_tier)):
+                sol_r = rescue(sol_r, *red,
+                               cap=max(8, rescue_capacity // 4),
+                               unconverged_only=True, eligible=red_tier)
+
+        # scatter back to full coordinates (dead entries are exactly 0
+        # in the equivalent full solve)
+        def scatter(v, idx, width):
+            return v.new_zeros((b, width)).scatter_(1, idx, v)
+        sol = sol_r.replace(x=scatter(sol_r.x, r.var_idx, n),
+                            y=scatter(sol_r.y, r.row_idx, m_rows),
+                            z=scatter(sol_r.z, r.row_idx, m_rows))
+
+        # the full-size big bucket: the big_capacity scenarios with the
+        # most live blocks, which holds every one beyond the reduced tier
+        # (else the overflow test took the full path)
+        big_idx = top_k_indices(n_live_blk, big_capacity)
+        tkb = lambda a: a[big_idx]
+        scal_b = _take(scal, big_idx)
+        p_b, q_b, mu_b = tkb(prob.p_mat), tkb(prob.q_vec), tkb(mu)
+        l_b, u_b, rho_b = tkb(prob.lb), tkb(prob.ub), tkb(prob.rho0)
+        m_bc = qpx.scaled_kkt_matrix_blockdiag(
+            p_b, base_blk, slope_blk, mu_b, l_b, u_b, settings, rho_b,
+            scal_b)
+        sol_b = qpx.admm_solve_fixed_batched_shared(
+            p_b, q_b, a0f, a1f, mu_b, l_b, u_b, iters, settings,
+            tkb(prob.warm_x), tkb(prob.warm_y), rho_b, scal_b,
+            batched_inverse(m_bc))
+        if rescue_capacity > 0:
+            big = (p_b, q_b, l_b, u_b, scal_b, a0f, a1f, mu_b,
+                   batched_inverse)
+            kw = dict(rescue_flag=tkb(prob.rescue_flag), rho0_base=rho_b)
+            sol_b = rescue(sol_b, *big, cap=max(8, big_capacity // 2), **kw)
+            if not host_bool(torch.all(sol_b.converged)):
+                sol_b = rescue(sol_b, *big, cap=max(8, big_capacity // 4),
+                               unconverged_only=True, **kw)
+        return _put(sol, big_idx, sol_b)
+
+    if big_capacity >= b or n_rb >= nblk:
+        return full_path()
+    if host_bool(torch.sum(n_live_blk > n_rb) > big_capacity):
+        return full_path()
+    return reduced_path()
+
+
+def _legacy_solve(cfg: A1Config, prob, scal, settings, *,
+                  use_pallas: bool):
+    """Legacy route: per-scenario scaled KKT with the materialized A,
+    inverted by K1 (``use_pallas``) or ``torch.linalg.inv``, and the
+    fused ADMM with per-scenario A (K4). No rescue."""
+    m_b = qpx.scaled_kkt_matrix(prob.p_mat, prob.q_vec, prob.a_mat,
+                                prob.lb, prob.ub, settings, prob.rho0, scal)
+    minv = batched_inverse(m_b) if use_pallas else torch.linalg.inv(m_b)
+    return qpx.admm_solve_fixed_batched(
+        prob.p_mat, prob.q_vec, prob.a_mat, prob.lb, prob.ub,
+        cfg.mpc_qp_iters, settings, prob.warm_x, prob.warm_y, prob.rho0,
+        scal, minv)
+
+
+_UNPORTED = "is not ported: ROADMAP.md, 'The other batched routes'"
+
+
 def batched_control_tick(cfg: A1Config, params_b: RobotParams, cs_b, mem_b,
                          sensors_b, joy: JoyCmd, dt: torch.Tensor, *,
+                         use_pallas: bool = False,
                          admm_backend: str = "pallas_shared",
                          kkt_backend: str = "gj",
+                         kkt_reduced_nr: int = 64,
+                         kkt_big_capacity: int = 256,
                          rescue_capacity: int = 0,
                          rescue_iters: int = 25,
                          kkt_carry: KktCarry | None = None,
@@ -312,40 +525,57 @@ def batched_control_tick(cfg: A1Config, params_b: RobotParams, cs_b, mem_b,
                          kkt_refine_order: int = 2,
                          return_stats: bool = False):
     """One batched MPC tick with the KKT factorization and the whole ADMM
-    loop hoisted out of the per-scenario code. Returns (cs, mem, torques)
-    [+ KktCarry on 'amortized'] [+ stats]."""
-    if admm_backend != "pallas_shared":
-        raise NotImplementedError(
-            f"admm_backend={admm_backend!r} is not ported: ROADMAP.md, "
-            "'The other batched routes'")
-    if kkt_backend not in ("gj", "amortized"):
-        raise NotImplementedError(
-            f"kkt_backend={kkt_backend!r} is not ported: ROADMAP.md, "
-            "'The other batched routes'")
+    loop hoisted out of the per-scenario code (routes: module
+    docstring). Returns (cs, mem, torques) [+ KktCarry on 'amortized']
+    [+ stats]; unlike the JAX package, the legacy route returns stats
+    too when asked."""
+    if admm_backend not in ("pallas_shared", "pallas"):
+        raise NotImplementedError(f"admm_backend={admm_backend!r} "
+                                  + _UNPORTED)
+    if admm_backend == "pallas_shared" and kkt_backend not in (
+            "gj", "amortized", "reduced", "reduced_admm"):
+        raise NotImplementedError(f"kkt_backend={kkt_backend!r} "
+                                  + _UNPORTED)
     assert cfg.mpc_solver_mode == "fixed"
     settings = qpx.QPSettings(rho=grf._MPC_RHO0, adaptive_rho=False)
 
-    cs, mem, prob = control_tick_build(cfg, params_b, cs_b, mem_b,
-                                       sensors_b, joy, dt)
+    cs, mem, prob = control_tick_build(
+        cfg, params_b, cs_b, mem_b, sensors_b, joy, dt,
+        with_a_mat=admm_backend != "pallas_shared")
     scal = qpx.rescale_cost(
         prob.p_mat, prob.q_vec,
         grf.scaling_for_contacts(mem.mpc_scaling_table, cs.contacts))
+    mu = params_b.mu_mpc
+    rescue = dict(rescue_capacity=rescue_capacity, rescue_iters=rescue_iters)
 
     extras = ()
-    if kkt_backend == "amortized":
+    if admm_backend == "pallas":
+        sol = _legacy_solve(cfg, prob, scal, settings, use_pallas=use_pallas)
+    elif kkt_backend == "amortized":
         assert kkt_carry is not None, \
             "kkt_backend='amortized' needs a threaded kkt_carry " \
             "(parallel.batched.make_kkt_carry)"
         sol, kcarry = _amortized_full_solve(
-            cfg, prob, scal, params_b.mu_mpc, settings, kkt_carry,
-            capacity=kkt_amortize_capacity, rescue_capacity=rescue_capacity,
-            rescue_iters=rescue_iters, refine_order=kkt_refine_order,
-            polish_due=polish_due_mask(cfg, mem))
+            cfg, prob, scal, mu, settings, kkt_carry,
+            capacity=kkt_amortize_capacity, refine_order=kkt_refine_order,
+            polish_due=polish_due_mask(cfg, mem), **rescue)
         extras = (kcarry,)
+    elif kkt_backend == "reduced_admm":
+        sol = _reduced_shared_solve(
+            cfg, prob, scal, mu, cs.contacts, settings,
+            reduced_blocks=max(2, (kkt_reduced_nr + 2) // 3),
+            big_capacity=kkt_big_capacity,
+            polish_due=polish_due_mask(cfg, mem), **rescue)
+    elif kkt_backend == "reduced":
+        live = srb.tile_last(cs.contacts.repeat_interleave(3, dim=1),
+                             cfg.horizon)
+        sol = _gj_solve(cfg, prob, scal, mu, settings,
+                        lambda m: qpx.reduced_kkt_inverse(
+                            m, live, n_r=kkt_reduced_nr,
+                            big_capacity=kkt_big_capacity), **rescue)
     else:
-        sol = _gj_solve(cfg, prob, scal, params_b.mu_mpc, settings,
-                        rescue_capacity=rescue_capacity,
-                        rescue_iters=rescue_iters)
+        sol = _gj_solve(cfg, prob, scal, mu, settings, batched_inverse,
+                        **rescue)
     out = control_tick_finish(cfg, params_b, cs, mem, sol) + extras
     if return_stats:
         out = out + ({"converged": sol.converged, "prim_res": sol.prim_res,

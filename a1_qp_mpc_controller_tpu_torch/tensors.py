@@ -73,6 +73,29 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+host_syncs = 0
+
+
+def host_bool(flag: torch.Tensor) -> bool:
+    """Read a device boolean on the host: the port's counterpart of a
+    ``lax.cond`` predicate. Each read is one host sync, counted in
+    ``host_syncs``."""
+    global host_syncs
+    host_syncs += 1
+    return bool(flag)
+
+
+def top_k_indices(score: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the ``k`` largest scores with ties to the lower index,
+    the order ``jax.lax.top_k`` gives (``torch.topk`` promises none).
+    The indices come from a sort of ``score`` itself, so every gather by
+    them is in range (``jnp.take`` would clamp, torch indexing would
+    fail); ``k`` is checked here, on the host."""
+    if not 0 < k <= score.shape[0]:
+        raise ValueError(f"top {k} of {score.shape[0]} scores")
+    return torch.sort(score, descending=True, stable=True).indices[:k]
+
+
 def check_on(device, *tensors) -> torch.device:
     """Resolve ``device`` and require every tensor to lie on it."""
     device = resolve_device(device)

@@ -105,6 +105,26 @@ def inv3(m: torch.Tensor) -> torch.Tensor:
     return inv / det[..., None, None]
 
 
+def inv3_spd(m: torch.Tensor) -> torch.Tensor:
+    """:func:`inv3` for symmetric 3x3 blocks: reads only the upper
+    triangle."""
+    a, b, c = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    d, e, f = m[..., 1, 1], m[..., 1, 2], m[..., 2, 2]
+    co00 = d * f - e * e
+    co01 = c * e - b * f
+    co02 = b * e - c * d
+    co11 = a * f - c * c
+    co12 = b * c - a * e
+    co22 = a * d - b * b
+    det = a * co00 + b * co01 + c * co02
+    inv_det = 1.0 / det
+    return torch.stack([
+        torch.stack([co00, co01, co02], dim=-1),
+        torch.stack([co01, co11, co12], dim=-1),
+        torch.stack([co02, co12, co22], dim=-1),
+    ], dim=-2) * inv_det[..., None, None]
+
+
 def solve3(m: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """3x3 solve via :func:`inv3`: (..., 3, 3) x (..., 3) -> (..., 3)."""
     return torch.einsum("...ij,...j->...i", inv3(m), b)

@@ -7,25 +7,35 @@ NVIDIA card and check it.
 Phases, in order:
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: both CUDA kernels from ``a1_qp_mpc_controller_tpu_torch/csrc``
-   with nvcc for ``sm_90a``;
-3. K1 (Gauss-Jordan KKT inverse) against its plain PyTorch version on the
-   scaled KKT matrices of a real B = 1024 trot tick, at every batch the
-   main path gives it: 48 and 96 (rescue rounds), 128 (capacity refresh)
-   and 1024 (refresh-all, 'gj');
-4. K2 (fused shared-basis ADMM) against its plain version on the same
-   tick, at every shape the main path gives it: B = 1024 with 25
-   iterations, and 150 iterations on gathers of 192, 96 and 48;
-5. the slice: ``make_flat_batch`` at B = 1024 on ``gazebo_mpc`` with the
-   bench schedule, the bench warm-up (stand, then trot at 0.3 m/s on the
-   'gj' route), then timed closed-loop ticks on the 'amortized' route.
-   The launch counts are set to 0 just before the 'gj' warm-up and read
-   just after it, then set to 0 again just before the amortized ticks
-   and read just after them; both kernels must have launched on each
-   route. A small batch is then run
-   through the same ticks on the card and on the CPU (plain versions),
-   which must agree;
-6. one JSON line listing each kernel, then the device line.
+2. build: the four CUDA kernels from ``a1_qp_mpc_controller_tpu_torch/csrc``
+   with nvcc for ``sm_90a`` (one nvcc process each, all at once), and
+   K3's occupancy by CUDA's calculator;
+3. the kernels against their plain PyTorch versions on the operands of a
+   real B = 1024 trot tick, at every shape a driven route gives them:
+   - K1 (Gauss-Jordan KKT inverse) at B = 40/48/80/96/128/160/192/1024
+     (rescue rounds, capacity refresh, the big bucket, refresh-all), bit
+     for bit;
+   - K2 (fused shared-basis ADMM) at n = 120, m = 200 (B = 1024 and the
+     big bucket's 160 with 25 iterations; the 150-iteration pools of
+     192/96/80/48/40) and at the reduced tier's n = 66, m = 110 (B = 1024
+     with 25 iterations, pools of 192 and 48 with 150);
+   - K3 (Gauss-Jordan inverse, small n) at (1024, 66), (192, 66),
+     (48, 66) and (1024, 64), bit for bit;
+   - K4 (fused ADMM, per-scenario A) at B = 1024, n = 120, m = 200, 25
+     iterations;
+4. the routes at B = 1024 on ``gazebo_mpc`` with the bench schedule: the
+   bench warm-up (120 stand and 380 trot ticks on 'gj'), then, each from
+   a copy of that one warmed state, 'amortized' and the bench's 'full'
+   candidate and the reduced tier of 'reduced_admm' (40 untimed and 100
+   timed ticks each), then 'reduced' and the legacy 'pallas' route (4
+   untimed and 20 timed). The launch counts are set to 0 just before each
+   route's ticks (and before the 'gj' warm-up) and read just after; every
+   kernel of a route must have launched on it. A small batch is then run
+   through the same first trot ticks on the card and on the CPU (plain
+   versions), which must agree in their torques, forces, contacts and
+   carried controller state: on 'gj', 'amortized' and 'full' from one
+   state, on the reduced tier tick by tick from the card's state;
+5. one JSON line listing each kernel, then the device line.
 
 Every failed check raises. The script needs a CUDA card and the
 repository around it; without either it exits non-zero and prints no
@@ -45,12 +55,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PKG = "a1_qp_mpc_controller_tpu_torch"
+PALLAS = "a1_qp_mpc_controller_tpu/ops/pallas_kernels.py"
 
 BATCH = 1024
 STAND_TICKS = 120          # bench.py _warm_trot
 WALK_TICKS = 380
-AMORTIZED_WARM_TICKS = 40
-TIMED_TICKS = 100
 SMALL_BATCH = 8
 # bench.py build(): the round-5 schedule
 SCHEDULE = dict(mpc_qp_iters=25, mpc_solver_mode="fixed",
@@ -58,8 +67,46 @@ SCHEDULE = dict(mpc_qp_iters=25, mpc_solver_mode="fixed",
                 mpc_cooldown_dense=12, mpc_drift_rescue_n=0.5)
 RESCUE = dict(rescue_capacity=192, rescue_iters=150)
 GJ_KW = dict(admm_backend="pallas_shared", kkt_backend="gj", **RESCUE)
+# bench.py _tick_kwargs: 'amortized' and 'full'; the reduced tier and
+# 'reduced' at the same settings with the reduced tier of 64 variables
 AMORTIZED_KW = dict(admm_backend="pallas_shared", kkt_backend="amortized",
                     kkt_amortize_capacity=128, kkt_refine_order=3, **RESCUE)
+FULL_KW = dict(admm_backend="pallas_shared", kkt_backend="reduced_admm",
+               kkt_reduced_nr=128, kkt_big_capacity=160, **RESCUE)
+TIER_KW = dict(FULL_KW, kkt_reduced_nr=64)
+REDUCED_KW = dict(TIER_KW, kkt_backend="reduced")
+LEGACY_KW = dict(admm_backend="pallas", use_pallas=True)
+K1, K2 = "batched_inverse", "fused_admm_shared"
+K3, K4 = "batched_inverse_small", "fused_admm"
+# route: (tick keyword arguments, untimed ticks, timed ticks, the kernels
+# that must launch on it)
+ROUTES = {
+    "amortized": (AMORTIZED_KW, 40, 100, {K1, K2}),
+    "full": (FULL_KW, 40, 100, {K1, K2}),
+    "reduced_tier": (TIER_KW, 40, 100, {K1, K2, K3}),
+    "reduced": (REDUCED_KW, 4, 20, {K1, K2, K3}),
+    "pallas": (LEGACY_KW, 4, 20, {K1, K4}),
+}
+# routes whose solve carries the rescue pool, held to the converged limit
+CONVERGED_ROUTES = ("amortized", "full", "reduced_tier")
+# the small card-vs-CPU check: route -> (tick keyword arguments, whether
+# each CPU tick starts from the card's state). Below B = 160 the big
+# bucket would hold the whole batch, so the reduced tier gets one of 2.
+# The reduced tier runs tick by tick from the card's state: its rescued
+# stepsize is estimated from residuals at the float32 rounding floor and
+# accepted by comparing such residuals, so over free-running ticks the
+# two devices part by more than the limits (PERF.md, PR 2); the carried
+# state each tick writes is compared too, so a fault in it still shows
+SMALL_ROUTES = {
+    "gj": (GJ_KW, False),
+    "amortized": (dict(AMORTIZED_KW, kkt_amortize_capacity=2), False),
+    "full": (FULL_KW, False),
+    "reduced_tier": (dict(TIER_KW, kkt_big_capacity=2), True),
+}
+# the controller state a tick carries into the next, compared after each
+# small tick: the discrete leaves exactly, the warm start and the
+# stepsize within limits
+SMALL_EXACT = ("mpc_flip_cooldown", "mpc_warm_started", "mpc_prev_contacts")
 
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores,
 # device-memory bandwidth
@@ -67,11 +114,20 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_S = 3.35e12
 
 # tolerances, each with its reason
-K1_REL_TOL = 1e-4      # same pivot sequence and rounding as the plain version
 K1_RESID_TOL = 1e-3    # ||MX - I||_max of sequential Gauss-Jordan on the KKT family
-K2_REL_TOL = 1e-4      # A-products summed in another order over 25 iterations
+K2_REL_TOL = 1e-4      # A-products summed in another order over the iterations
+K4_REL_TOL = 1e-4      # the same, with the per-scenario A
 SMALL_TQ_TOL = 5e-3    # torques, N m, after 3 ticks (tests/test_parallel.py)
 SMALL_F_TOL = 0.05     # ground-reaction forces, N
+# the carried state: its first step is the forces above; the later
+# steps of the horizon are near-flat directions of the QP, 20x looser
+SMALL_WARM_X_TOL = 1.0       # N, over the whole horizon
+SMALL_WARM_Y_REL = 1e-3      # the carried dual, of its largest entry
+# the carried stepsize is estimated from residuals at the float32
+# rounding floor, so it is held only to a factor; a fault shows as a
+# jump across its 1000x clamp band
+SMALL_RHO_FACTOR = 4.0
+CONVERGED_MIN = 0.99   # bench.py's rule: throughput counts at solver accuracy
 
 
 def log(*a):
@@ -145,129 +201,321 @@ def warm(port, cfg, pb, terr, carry, joy_s, joy_w, device, stand, walk):
 
 
 def real_tick(port, device):
-    """Scaled KKT matrices and fused-ADMM operands of one B = 1024 trot
-    tick (after a short stand + trot warm-up), built by the port."""
+    """The solver operands of one B = 1024 trot tick (after a short stand
+    and trot warm-up), built by the port: the scaled KKT matrices at full
+    size and at the reduced shapes, and each ADMM kernel's operands as a
+    function of the inverse."""
     import torch
+    qpx, srb, batched = port.qp, port.srb, port.batched
     cfg, pb, terr, carry, joy_s, joy_w = setup(port, BATCH, device)
     carry = warm(port, cfg, pb, terr, carry, joy_s, joy_w, device, 40, 40)
     dt = torch.full((), cfg.control_dt, device=device)
     sens = port.plant.read_sensors(pb, carry.ps, carry.prev_root_lin_vel, dt)
     cs, mem, prob = port.controller.control_tick_build(
-        cfg, pb, carry.cs, carry.mem, sens, joy_w, dt)
-    qpx, srb = port.qp, port.srb
-    scal = qpx.rescale_cost(prob.p_mat, prob.q_vec, port.grf.scaling_for_contacts(
-        mem.mpc_scaling_table, cs.contacts))
+        cfg, pb, carry.cs, carry.mem, sens, joy_w, dt, with_a_mat=True)
+    scal = qpx.rescale_cost(prob.p_mat, prob.q_vec,
+                            port.grf.scaling_for_contacts(
+                                mem.mpc_scaling_table, cs.contacts))
     settings = qpx.QPSettings(rho=port.grf._MPC_RHO0, adaptive_rho=False)
     base, slope = srb.friction_basis_blocks(torch.float32, device)
-    m_b = qpx.scaled_kkt_matrix_blockdiag(
-        prob.p_mat, base, slope, pb.mu_mpc, prob.lb, prob.ub, settings,
-        prob.rho0, scal)
+    mu = pb.mu_mpc
+    m_full = qpx.scaled_kkt_matrix_blockdiag(
+        prob.p_mat, base, slope, mu, prob.lb, prob.ub, settings, prob.rho0,
+        scal)
     a0, a1 = srb.friction_constraint_basis(cfg.horizon, torch.float32, device)
-    ops = lambda minv: qpx.shared_admm_operands(
-        prob.q_vec, a0, a1, pb.mu_mpc, prob.lb, prob.ub, settings,
-        prob.warm_x, prob.warm_y, prob.rho0, scal, minv)
-    n_swing_rows = int(torch.isinf(prob.ub).sum())
-    log(f"  real tick: {int((~cs.contacts).sum())} swing legs, "
-        f"{n_swing_rows} unbounded constraint rows of "
+    # the reduced tier of 'reduced_admm' (22 blocks: 66 variables, 110
+    # rows) and the live block of 'reduced' (64 variables)
+    live_blk = srb.tile_last(cs.contacts, cfg.horizon)
+    r = batched.gather_live_blocks(prob, scal, live_blk, 22)
+    m_r = qpx.scaled_kkt_matrix_blockdiag(r.p, base, slope, mu, r.l, r.u,
+                                          settings, prob.rho0, r.scal)
+    a0r, a1r = srb.friction_constraint_basis_nblk(22, torch.float32, device)
+    live = srb.tile_last(cs.contacts.repeat_interleave(3, dim=1),
+                         cfg.horizon)
+    m_64 = qpx.gather_square(m_full, qpx.live_first(live, 64)).contiguous()
+    sp = qpx.apply_scaling(prob.p_mat, prob.q_vec, prob.a_mat, prob.lb,
+                           prob.ub, scal)
+    n_stance = cs.contacts.sum(dim=1)
+    log(f"  real tick: stance legs per scenario "
+        f"{ {int(k): int((n_stance == k).sum()) for k in range(5)} }, "
+        f"{int(torch.isinf(prob.ub).sum())} unbounded constraint rows of "
         f"{prob.ub.numel()}")
-    return m_b, ops
+    return dict(
+        m_full=m_full, m_r=m_r.contiguous(), m_64=m_64,
+        m_dense=qpx.scaled_kkt_matrix(prob.p_mat, prob.q_vec, prob.a_mat,
+                                      prob.lb, prob.ub, settings, prob.rho0,
+                                      scal),
+        ops_full=lambda minv: qpx.shared_admm_operands(
+            prob.q_vec, a0, a1, mu, prob.lb, prob.ub, settings,
+            prob.warm_x, prob.warm_y, prob.rho0, scal, minv),
+        ops_r=lambda minv: qpx.shared_admm_operands(
+            r.q, a0r, a1r, mu, r.l, r.u, settings, r.warm_x, r.warm_y,
+            prob.rho0, r.scal, minv),
+        ops_legacy=lambda minv: qpx.legacy_admm_operands(
+            sp, settings, prob.warm_x, prob.warm_y, prob.rho0, minv))
 
 
-# the main path's K1 batches: rescue rounds, capacity refresh, refresh-all
-K1_BATCHES = (48, 96, 128, BATCH)
-
-
-def phase_k1(port, m_all):
+def inverse_rows(port, name, m_all, batches, fn, plain):
+    """A Gauss-Jordan kernel against its plain version on the first b
+    matrices of ``m_all`` for each b: bit-equal, ||MX - I||_max within
+    K1_RESID_TOL; times of the kernel, the plain version,
+    ``torch.linalg.inv`` and the bound: each matrix read and written
+    once, and 2n^2(n + 1) operations per matrix, a multiply and a
+    subtract for each of the n + 1 columns of [M | I] per row and pivot
+    that are not yet unit or zero columns (at pivot k, M's columns
+    k..n-1 and the inverse's columns 0..k)."""
     import torch
-    k = port.kernels
     rows = []
-    for b in K1_BATCHES:
+    for b in batches:
         m = m_all[:b].contiguous()
-        x = k.batched_inverse(m)
+        x = fn(m)
         torch.cuda.synchronize()
-        ref = k.batched_inverse_plain(m)
+        ref = plain(m)
         err = float((x - ref).abs().max())
-        rel = err / float(ref.abs().max())
-        eye = torch.eye(m.shape[-1], dtype=torch.float64, device=m.device)
-        resid = float((m.double() @ x.double() - eye).abs().max())
-        ms = cuda_ms(lambda: k.batched_inverse(m), 20)
-        plain_ms = cuda_ms(lambda: k.batched_inverse_plain(m), 3)
-        lib_ms = cuda_ms(lambda: torch.linalg.inv(m), 10)
+        equal = bool(torch.equal(x, ref))
         n = m.shape[-1]
-        bnd, by = bound_ms(b * n * (4 * n * n + 2 * n), 2 * b * n * n * 4)
-        log(f"  K1 B={b}: max|kernel-plain|={err:.3e} (rel {rel:.3e}, "
-            f"tol {K1_REL_TOL}), ||MX-I||_max={resid:.3e} "
-            f"(tol {K1_RESID_TOL}); kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, torch.linalg.inv {lib_ms:.4f} ms, "
-            f"bound {bnd:.4f} ms ({by})")
-        if not (rel <= K1_REL_TOL and resid <= K1_RESID_TOL):
-            raise AssertionError(f"K1 disagrees at B={b}: rel {rel}, "
-                                 f"resid {resid}")
-        rows.append(dict(b=b, err=err, ms=ms, plain_ms=plain_ms,
+        eye = torch.eye(n, dtype=torch.float64, device=m.device)
+        resid = float((m.double() @ x.double() - eye).abs().max())
+        ms = cuda_ms(lambda: fn(m), 20)
+        plain_ms = cuda_ms(lambda: plain(m), 3)
+        lib_ms = cuda_ms(lambda: torch.linalg.inv(m), 10)
+        bnd, by = bound_ms(b * 2 * n * n * (n + 1), 2 * b * n * n * 4)
+        log(f"  {name} B={b} n={n}: bit-equal {equal} (max|kernel-plain| "
+            f"{err:.3e}), ||MX-I||_max={resid:.3e} (tol {K1_RESID_TOL}); "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.linalg.inv "
+            f"{lib_ms:.4f} ms, bound {bnd:.4f} ms ({by})")
+        if not (equal and resid <= K1_RESID_TOL):
+            raise AssertionError(f"{name} disagrees at B={b}, n={n}: "
+                                 f"err {err}, resid {resid}")
+        rows.append(dict(b=b, n=n, err=err, ms=ms, plain_ms=plain_ms,
                          lib_ms=lib_ms, bound_ms=bnd, bound_by=by))
     return rows
 
 
-# the main path's K2 shapes: the first pass, then the 150-iteration
-# continuation and rescue rounds on their gathered pools
-K2_SHAPES = ((BATCH, 25), (192, 150), (96, 150), (48, 150))
-
-
-def phase_k2(port, ops_all):
-    """K2 against its plain version at each main-path shape, each held
-    to K2_REL_TOL."""
+def admm_rows(port, name, ops_all, shapes, fn, plain, tol, flops_of,
+              bytes_of, shared=()):
+    """A fused ADMM kernel against its plain version at each (b, iters),
+    each output held to ``tol`` of its scale; times and the bound from
+    ``flops_of(ops, iters)`` and ``bytes_of(ops)``."""
     import torch
-    k = port.kernels
     rows = []
-    for b, iters in K2_SHAPES:
-        ops = {key: v if key in ("a0", "a1") else v[:b].contiguous()
+    for b, iters in shapes:
+        ops = {key: v if key in shared else v[:b].contiguous()
                for key, v in ops_all.items()}
-        out = k.fused_admm_shared(**ops, iters=iters)
+        out = fn(**ops, iters=iters)
         torch.cuda.synchronize()
-        ref = k.fused_admm_shared_plain(**ops, iters=iters, sigma=1e-6,
-                                        alpha=1.6)
+        ref = plain(**ops, iters=iters, sigma=1e-6, alpha=1.6)
         err, rels = 0.0, []
-        for name, o, r in zip("xyz", out, ref):
+        for o_name, o, r in zip("xyz", out, ref):
             if not bool(torch.isfinite(o).all()):
-                raise AssertionError(f"K2 output {name} is not finite")
+                raise AssertionError(f"{name} output {o_name} is not finite")
             e = float((o - r).abs().max())
             err = max(err, e)
             rels.append(e / float(r.abs().max()))
-        ms = cuda_ms(lambda: k.fused_admm_shared(**ops, iters=iters), 10)
-        plain_ms = cuda_ms(lambda: k.fused_admm_shared_plain(
-            **ops, iters=iters, sigma=1e-6, alpha=1.6), 3)
+        ms = cuda_ms(lambda: fn(**ops, iters=iters), 10)
+        plain_ms = cuda_ms(lambda: plain(**ops, iters=iters, sigma=1e-6,
+                                         alpha=1.6), 3)
         n = ops["qs"].shape[1]
         m = ops["ls"].shape[1]
-        # per iteration: the four A-products counted by the nonzeros of
-        # the shared A0/A1 (the data), the dense minv matvec, and the
-        # elementwise updates (~17 operations per row, 9 per variable)
-        nnz = int((ops["a0"] != 0).sum() + (ops["a1"] != 0).sum())
-        flops = b * iters * (4 * nnz + 2 * n * n + 17 * m + 9 * n)
-        dense = b * iters * (8 * m * n + 2 * n * n)
-        # inputs read once (minv, A0, A1, mu, three (B, n) and six (B, m)
-        # vectors), outputs written once (x, y, z)
-        nbytes = 4 * (b * n * n + 2 * m * n + b + 3 * b * n + 6 * b * m
-                      + b * n + 2 * b * m)
-        bnd, by = bound_ms(flops, nbytes)
-        log(f"  K2 B={b} iters={iters}: max rel |kernel-plain| x/y/z = "
-            + "/".join(f"{r:.3e}" for r in rels)
-            + f" (tol {K2_REL_TOL}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-            f"{bnd:.4f} ms ({by}; A0/A1 nnz {nnz}; the dense count gives "
+        flops, dense = flops_of(ops, iters)
+        bnd, by = bound_ms(flops, bytes_of(ops))
+        log(f"  {name} B={b} n={n} m={m} iters={iters}: max rel "
+            "|kernel-plain| x/y/z = " + "/".join(f"{r:.3e}" for r in rels)
+            + f" (tol {tol}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {bnd:.4f} ms ({by}; the dense count gives "
             f"{dense / PEAK_F32_FLOPS * 1e3:.4f} ms)")
-        if max(rels) > K2_REL_TOL:
-            raise AssertionError(f"K2 disagrees at B={b}, {iters} "
-                                 f"iterations: {rels}")
-        rows.append(dict(b=b, iters=iters, err=err, rel=max(rels), ms=ms,
-                         plain_ms=plain_ms, bound_ms=bnd, bound_by=by))
+        if max(rels) > tol:
+            raise AssertionError(f"{name} disagrees at B={b}, n={n}, "
+                                 f"{iters} iterations: {rels}")
+        rows.append(dict(b=b, n=n, m=m, iters=iters, err=err, rel=max(rels),
+                         ms=ms, plain_ms=plain_ms, bound_ms=bnd,
+                         bound_by=by))
     return rows
 
 
-def phase_slice(port, device):
-    """Returns (launch counts of the amortized ticks, launch counts of the
-    'gj' warm-up, metrics)."""
+def k2_flops(ops, iters):
+    """Per iteration: the four A-products counted by the nonzeros of the
+    shared A0/A1 (the data), the dense minv matvec, and the elementwise
+    updates (~17 operations per row, 9 per variable); and the count
+    with dense A-products."""
+    b, n = ops["qs"].shape
+    m = ops["ls"].shape[1]
+    nnz = int((ops["a0"] != 0).sum() + (ops["a1"] != 0).sum())
+    return (b * iters * (4 * nnz + 2 * n * n + 17 * m + 9 * n),
+            b * iters * (8 * m * n + 2 * n * n))
+
+
+def k2_bytes(ops):
+    """Inputs read once (minv, A0, A1, mu, three (B, n) and six (B, m)
+    vectors), outputs written once (x, y, z)."""
+    b, n = ops["qs"].shape
+    m = ops["ls"].shape[1]
+    return 4 * (b * n * n + 2 * m * n + b + 3 * b * n + 6 * b * m
+                + b * n + 2 * b * m)
+
+
+def k4_flops(ops, iters):
+    """Per iteration: the two products with each scenario's A counted by
+    its nonzeros (the data), the dense minv matvec and the elementwise
+    updates (~9 operations per row, 6 per variable); and the count with
+    dense A."""
+    b, n = ops["qs"].shape
+    m = ops["ls"].shape[1]
+    nnz = int((ops["a_s"] != 0).sum())
+    return (iters * (4 * nnz + b * (2 * n * n + 9 * m + 6 * n)),
+            b * iters * (4 * m * n + 2 * n * n))
+
+
+def k4_bytes(ops):
+    """Inputs read once (minv, A, two (B, n) and five (B, m) vectors),
+    outputs written once (x, y, z)."""
+    b, n = ops["qs"].shape
+    m = ops["ls"].shape[1]
+    return 4 * (b * n * n + b * m * n + 2 * b * n + 5 * b * m
+                + b * n + 2 * b * m)
+
+
+def phase_kernels(port, device):
+    k = port.kernels
+    tick = real_tick(port, device)
+    out = {}
+    log("[3a] K1 batched_inverse vs plain")
+    out[K1] = inverse_rows(port, "K1", tick["m_full"],
+                           (BATCH, 192, 160, 128, 96, 80, 48, 40),
+                           k.batched_inverse, k.batched_inverse_plain)
+    log("[3b] K3 batched_inverse_small vs plain")
+    out[K3] = (inverse_rows(port, "K3", tick["m_r"], (BATCH, 192, 48),
+                            k.batched_inverse_small,
+                            k.batched_inverse_small_plain)
+               + inverse_rows(port, "K3", tick["m_64"], (BATCH,),
+                              k.batched_inverse_small,
+                              k.batched_inverse_small_plain))
+    log("[3c] K2 fused_admm_shared vs plain")
+    ops_full = tick["ops_full"](k.batched_inverse(tick["m_full"]))
+    ops_r = tick["ops_r"](k.batched_inverse_small(tick["m_r"]))
+    run_k2 = lambda ops, shapes: admm_rows(
+        port, "K2", ops, shapes, k.fused_admm_shared,
+        k.fused_admm_shared_plain, K2_REL_TOL, k2_flops, k2_bytes,
+        shared=("a0", "a1"))
+    out[K2] = (run_k2(ops_full, ((BATCH, 25), (160, 25), (192, 150),
+                                 (96, 150), (80, 150), (48, 150),
+                                 (40, 150)))
+               + run_k2(ops_r, ((BATCH, 25), (192, 150), (48, 150))))
+    log("[3d] K4 fused_admm vs plain")
+    ops_l = tick["ops_legacy"](k.batched_inverse(tick["m_dense"]))
+    out[K4] = admm_rows(port, "K4", ops_l, ((BATCH, 25),), k.fused_admm,
+                        k.fused_admm_plain, K4_REL_TOL, k4_flops, k4_bytes)
+    return out
+
+
+def clone(port, tree):
+    return port.tensors.tree_map(lambda a: a.clone(), tree)
+
+
+def run_route(port, route, env, carry0, device):
+    """One route's ticks at B = 1024 from a copy of the warmed state:
+    the launch counts and the host reads from 0 just before them, read
+    just after; then synchronizing calls and a profile over a few
+    more ticks. Returns the route's metrics."""
     import torch
-    batched, k = port.batched, port.kernels
-    batched.host_syncs = 0
+    batched, k, tensors = port.batched, port.kernels, port.tensors
+    kw, n_warm, n_timed, needs = ROUTES[route]
+    cfg, pb, terr, joy = env
+    carry = clone(port, carry0)
+    kc = [batched.make_kkt_carry(cfg, BATCH, device=device)
+          if route == "amortized" else None]
+
+    def step(carry):
+        extra = dict(kkt_carry=kc[0]) if kc[0] is not None else {}
+        out = batched.batched_closed_loop_step(
+            cfg, pb, terr, carry, joy, cfg.control_dt, device=device,
+            return_stats=True, **extra, **kw)
+        if kc[0] is not None:
+            carry, kc[0], stats = out
+        else:
+            carry, stats = out
+        return carry, stats
+
+    flips = torch.zeros((), dtype=torch.int64, device=device)
+    k.reset_launches()
+    tensors.host_syncs = 0
+    for _ in range(n_warm):
+        prev = carry.cs.contacts
+        carry, _ = step(carry)
+        flips += (carry.cs.contacts != prev).any(dim=1).sum()
+    torch.cuda.synchronize()
+    syncs0 = tensors.host_syncs
+    conv = []
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(n_timed + 1)]
+    t0 = time.perf_counter()
+    events[0].record()
+    for i in range(n_timed):
+        prev = carry.cs.contacts
+        carry, stats = step(carry)
+        events[i + 1].record()
+        conv.append(stats["converged"])
+        flips += (carry.cs.contacts != prev).any(dim=1).sum()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(k.launches)
+    reads = (tensors.host_syncs - syncs0) / n_timed
+    # every synchronizing call the card sees in a few more ticks (the
+    # counter above counts only the branches written as host reads)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for _ in range(3):
+                carry, _ = step(carry)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    synced = len(caught) / 3
+    sites = {}
+    for w in caught:
+        site = f"{Path(w.filename).name}:{w.lineno}"
+        sites[site] = sites.get(site, 0) + 1
+    log(f"  {route}: synchronizing call sites over 3 ticks: " + ", ".join(
+        f"{s} x{v}" for s, v in sorted(sites.items(), key=lambda kv: -kv[1])))
+    prof = profile_ticks(route, step, carry)
+    tick_ms = [events[i].elapsed_time(events[i + 1]) for i in range(n_timed)]
+    conv_frac = float(torch.stack(conv).float().mean())
+    z = carry.ps.root_pos[:, 2]
+    alive = float((~torch.isnan(z)).float().mean())
+    ms_sorted = sorted(tick_ms)
+    metrics = dict(
+        ticks=n_timed, solves_per_s=BATCH * n_timed / wall,
+        tick_ms_mean=sum(tick_ms) / len(tick_ms),
+        tick_ms_p50=ms_sorted[len(ms_sorted) // 2],
+        tick_ms_p99=ms_sorted[int(0.99 * (len(ms_sorted) - 1))],
+        alive=alive, converged=conv_frac, host_reads_per_tick=reads,
+        synchronizing_calls_per_tick=synced, flips=int(flips),
+        mean_z=float(torch.nanmean(z)), launches=counts, profile=prof)
+    if kc[0] is not None:
+        metrics["kkt_age_max"] = int(kc[0].age.max())
+    log(f"  {route} B={BATCH}: {n_warm} untimed + {n_timed} timed ticks: "
+        f"{metrics['solves_per_s']:.1f} solves/s, tick mean "
+        f"{metrics['tick_ms_mean']:.3f} ms p50 {metrics['tick_ms_p50']:.3f} "
+        f"p99 {metrics['tick_ms_p99']:.3f}; alive {alive}, converged "
+        f"{conv_frac}, host reads/tick {reads} (synchronizing calls/tick "
+        f"{synced}), contact flips {metrics['flips']}, mean z "
+        f"{metrics['mean_z']:.4f} m; launches {counts}")
+    if alive != 1.0:
+        raise AssertionError(f"{route}: alive {alive}")
+    if route in CONVERGED_ROUTES and conv_frac < CONVERGED_MIN:
+        raise AssertionError(f"{route}: converged {conv_frac}")
+    if not all(counts[name] > 0 for name in needs):
+        raise AssertionError(f"a kernel of {sorted(needs)} never launched "
+                             f"on the {route} route: {counts}")
+    if metrics["flips"] == 0:
+        raise AssertionError(f"no contact flips on the {route} route")
+    return metrics
+
+
+def phase_routes(port, device):
+    """The 'gj' warm-up once, then every route from a copy of it."""
+    import torch
+    k = port.kernels
     t0 = time.perf_counter()
     cfg, pb, terr, carry, joy_s, joy_w = setup(port, BATCH, device)
     k.reset_launches()
@@ -276,91 +524,17 @@ def phase_slice(port, device):
     torch.cuda.synchronize()
     gj_counts = dict(k.launches)
     warm_s = time.perf_counter() - t0
-    kc = batched.make_kkt_carry(cfg, BATCH, device=device)
-    step = lambda carry, kc: batched.batched_closed_loop_step(
-        cfg, pb, terr, carry, joy_w, cfg.control_dt, device=device,
-        kkt_carry=kc, return_stats=True, **AMORTIZED_KW)
-    flips = torch.zeros((), dtype=torch.int64, device=device)
-    k.reset_launches()
-    for _ in range(AMORTIZED_WARM_TICKS):
-        prev = carry.cs.contacts
-        carry, kc, _ = step(carry, kc)
-        flips += (carry.cs.contacts != prev).any(dim=1).sum()
-    torch.cuda.synchronize()
-    syncs0 = batched.host_syncs
-    conv, tick_ms = [], []
-    events = [torch.cuda.Event(enable_timing=True)
-              for _ in range(TIMED_TICKS + 1)]
-    t0 = time.perf_counter()
-    events[0].record()
-    for i in range(TIMED_TICKS):
-        prev = carry.cs.contacts
-        carry, kc, stats = step(carry, kc)
-        events[i + 1].record()
-        conv.append(stats["converged"])
-        flips += (carry.cs.contacts != prev).any(dim=1).sum()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = dict(k.launches)
-    k.reset_launches()
-    syncs = (batched.host_syncs - syncs0) / TIMED_TICKS
-    # every synchronizing call the card sees in a few more ticks (the
-    # counter above counts only the branches written as host reads)
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            for _ in range(3):
-                carry, kc, _ = step(carry, kc)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    synced = len(caught) / 3
-    sites = {}
-    for w in caught:
-        site = f"{Path(w.filename).name}:{w.lineno}"
-        sites[site] = sites.get(site, 0) + 1
-    log("  synchronizing call sites over 3 ticks: " + ", ".join(
-        f"{k} x{v}" for k, v in sorted(sites.items(), key=lambda kv: -kv[1])))
-    prof = profile_ticks(step, carry, kc)
-    tick_ms = [events[i].elapsed_time(events[i + 1])
-               for i in range(TIMED_TICKS)]
-    conv_frac = float(torch.stack(conv).float().mean())
-    z = carry.ps.root_pos[:, 2]
-    alive = float((~torch.isnan(z)).float().mean())
-    ms_sorted = sorted(tick_ms)
-    metrics = dict(
-        solves_per_s=BATCH * TIMED_TICKS / wall,
-        tick_ms_mean=sum(tick_ms) / len(tick_ms),
-        tick_ms_p50=ms_sorted[len(ms_sorted) // 2],
-        tick_ms_p99=ms_sorted[int(0.99 * (len(ms_sorted) - 1))],
-        alive=alive, converged=conv_frac, host_syncs_per_tick=syncs,
-        synchronizing_calls_per_tick=synced,
-        flips=int(flips), mean_z=float(torch.nanmean(z)), warm_s=warm_s,
-        kkt_age_max=int(kc.age.max()), profile=prof)
-    log(f"  slice B={BATCH}: warm-up {warm_s:.1f} s "
-        f"({STAND_TICKS}+{WALK_TICKS} gj ticks, "
-        f"{AMORTIZED_WARM_TICKS} amortized); {TIMED_TICKS} timed "
-        f"amortized ticks: {metrics['solves_per_s']:.1f} solves/s, "
-        f"tick mean {metrics['tick_ms_mean']:.3f} ms p50 "
-        f"{metrics['tick_ms_p50']:.3f} p99 {metrics['tick_ms_p99']:.3f}; "
-        f"alive {alive}, converged {conv_frac}, host syncs/tick {syncs} "
-        f"(synchronizing calls/tick {synced}), "
-        f"contact flips {metrics['flips']}, mean z "
-        f"{metrics['mean_z']:.4f} m; launches: 'gj' warm-up {gj_counts}, "
-        f"amortized ticks {counts}")
-    if alive != 1.0 or conv_frac < 0.99:
-        raise AssertionError(f"slice: alive {alive}, converged {conv_frac}")
-    for route, c in (("gj", gj_counts), ("amortized", counts)):
-        if set(c) != {"batched_inverse", "fused_admm_shared"} or not all(
-                c.values()):
-            raise AssertionError(f"a kernel never launched on the {route} "
-                                 f"route: {c}")
-    if metrics["flips"] == 0:
-        raise AssertionError("no contact flips in the slice")
-    return counts, gj_counts, metrics
+    log(f"  warm-up: {STAND_TICKS}+{WALK_TICKS} 'gj' ticks in {warm_s:.1f} "
+        f"s, launches {gj_counts}")
+    if not (gj_counts[K1] and gj_counts[K2]):
+        raise AssertionError(f"a kernel never launched on 'gj': {gj_counts}")
+    env = (cfg, pb, terr, joy_w)
+    routes = {name: run_route(port, name, env, carry, device)
+              for name in ROUTES}
+    return routes, gj_counts, warm_s
 
 
-def profile_ticks(step, carry, kc, ticks: int = 5):
+def profile_ticks(route, step, carry, ticks: int = 5):
     """Kernel time by name over a few ticks (torch.profiler's CUDA kernel
     events, which do not overlap on the one stream), the kernel launches
     per tick, and the share of the wall time the card was busy."""
@@ -372,7 +546,7 @@ def profile_ticks(step, carry, kc, ticks: int = 5):
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(ticks):
-            carry, kc, _ = step(carry, kc)
+            carry, _ = step(carry)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
@@ -381,58 +555,101 @@ def profile_ticks(step, carry, kc, ticks: int = 5):
                   key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
     if busy <= 0:
-        log("  profile: no device time recorded (not measured)")
+        log(f"  {route} profile: no device time recorded (not measured)")
         return None
     launches = sum(r[2] for r in rows) / ticks
-    log(f"  profile over {ticks} ticks: wall {wall_ms / ticks:.3f} ms/tick, "
-        f"kernel time {busy / ticks:.3f} ms/tick "
-        f"({100 * busy / wall_ms:.1f}% of wall), {launches:.1f} kernel "
-        f"launches/tick")
-    for key, ms, count in rows[:12]:
+    log(f"  {route} profile over {ticks} ticks: wall "
+        f"{wall_ms / ticks:.3f} ms/tick, kernel time {busy / ticks:.3f} "
+        f"ms/tick ({100 * busy / wall_ms:.1f}% of wall), {launches:.1f} "
+        f"kernel launches/tick")
+    for key, ms, count in rows[:8]:
         log(f"    {ms / ticks:9.3f} ms/tick  x{count / ticks:6.1f}  {key[:90]}")
     return dict(wall_ms=wall_ms / ticks, kernel_ms=busy / ticks,
-                busy_share=busy / wall_ms, launches=launches)
+                busy_share=busy / wall_ms, launches=launches,
+                top=[(key[:60], ms / ticks) for key, ms, _ in rows[:4]])
 
 
 def phase_small(port, device):
     """A small batch stood up for 20 ticks on the CPU, then copied to the
     card: 3 trot ticks on each route there (CUDA kernels) and on the CPU
-    (plain versions) from that identical state, compared tick by tick."""
+    (plain versions), compared tick by tick (torques, forces, contacts
+    and the carried controller state); from that one state, or, on the
+    routes that say so, each CPU tick from the card's state before
+    it."""
     import torch
     cpu = torch.device("cpu")
     cfg, pb, terr, carry, joy_s, joy_w = setup(port, SMALL_BATCH, cpu)
     carry = warm(port, cfg, pb, terr, carry, joy_s, joy_w, cpu, 20, 0)
     to = lambda tree, dev: port.tensors.tree_map(lambda a: a.to(dev), tree)
+    env = {dev: (to(pb, dev), to(terr, dev), to(joy_w, dev))
+           for dev in (device, cpu)}
+    diff = lambda a, b: float((a.cpu() - b).abs().max())
+    limits = dict(torque=SMALL_TQ_TOL, force=SMALL_F_TOL,
+                  warm_x=SMALL_WARM_X_TOL, warm_y_rel=SMALL_WARM_Y_REL,
+                  rho_factor=SMALL_RHO_FACTOR)
     worst = {}
-    for route, kw in (("gj", GJ_KW), ("amortized", AMORTIZED_KW)):
-        kw = {**kw, "kkt_amortize_capacity": 2} if route == "amortized" else kw
-        runs = []
-        for dev in (device, cpu):
-            c = to(carry, dev)
-            p, tr, jw = to(pb, dev), to(terr, dev), to(joy_w, dev)
-            kc = port.batched.make_kkt_carry(cfg, SMALL_BATCH, device=dev)
-            outs = []
-            for _ in range(3):
-                if route == "amortized":
-                    c, kc = port.batched.batched_closed_loop_step(
-                        cfg, p, tr, c, jw, cfg.control_dt, device=dev,
-                        kkt_carry=kc, **kw)
-                else:
-                    c = port.batched.batched_closed_loop_step(
-                        cfg, p, tr, c, jw, cfg.control_dt, device=dev, **kw)
-                outs.append((c.cs.joint_torques.cpu(),
-                             c.cs.foot_forces_grf.cpu()))
-            runs.append(outs)
-        tq = max(float((a[0] - b[0]).abs().max()) for a, b in zip(*runs))
-        ff = max(float((a[1] - b[1]).abs().max()) for a, b in zip(*runs))
-        finite = all(bool(torch.isfinite(a[0]).all()) for a in runs[0])
-        log(f"  small B={SMALL_BATCH} {route}: card vs CPU max |dtorque| "
-            f"{tq:.3e} (tol {SMALL_TQ_TOL}), max |dforce| {ff:.3e} N "
-            f"(tol {SMALL_F_TOL})")
-        if not (finite and tq <= SMALL_TQ_TOL and ff <= SMALL_F_TOL):
-            raise AssertionError(f"small {route}: torque {tq}, force {ff}")
-        worst[route] = (tq, ff)
+    for route, (kw, synced) in SMALL_ROUTES.items():
+        def step(dev, c, kc):
+            p, tr, jw = env[dev]
+            if route == "amortized":
+                return port.batched.batched_closed_loop_step(
+                    cfg, p, tr, c, jw, cfg.control_dt, device=dev,
+                    kkt_carry=kc, **kw)
+            return port.batched.batched_closed_loop_step(
+                cfg, p, tr, c, jw, cfg.control_dt, device=dev, **kw), kc
+
+        state = {dev: (to(carry, dev), port.batched.make_kkt_carry(
+            cfg, SMALL_BATCH, device=dev)) for dev in (device, cpu)}
+        got = dict.fromkeys(limits, 0.0)
+        for tick in range(3):
+            if synced:
+                state[cpu] = (to(state[device][0], cpu), state[cpu][1])
+            state = {dev: step(dev, *state[dev]) for dev in state}
+            card, host = state[device][0], state[cpu][0]
+            if not bool(torch.isfinite(card.cs.joint_torques).all()):
+                raise AssertionError(f"small {route}: torques not finite")
+            for name in SMALL_EXACT:
+                if not torch.equal(getattr(card.mem, name).cpu(),
+                                   getattr(host.mem, name)):
+                    raise AssertionError(f"small {route} tick {tick}: "
+                                         f"{name} differs")
+            if not torch.equal(card.cs.contacts.cpu(), host.cs.contacts):
+                raise AssertionError(f"small {route} tick {tick}: contacts "
+                                     "differ")
+            ratio = card.mem.mpc_rho.cpu() / host.mem.mpc_rho
+            now = dict(
+                torque=diff(card.cs.joint_torques, host.cs.joint_torques),
+                force=diff(card.cs.foot_forces_grf, host.cs.foot_forces_grf),
+                warm_x=diff(card.mem.mpc_warm_x, host.mem.mpc_warm_x),
+                warm_y_rel=diff(card.mem.mpc_warm_y, host.mem.mpc_warm_y)
+                / float(host.mem.mpc_warm_y.abs().max()),
+                rho_factor=float(torch.maximum(ratio, 1.0 / ratio).max()))
+            got = {key: max(v, now[key]) for key, v in got.items()}
+        log(f"  small B={SMALL_BATCH} {route}"
+            f"{' (tick by tick)' if synced else ''}: card vs CPU max |d| "
+            + ", ".join(f"{key} {v:.3e} (tol {limits[key]})"
+                        for key, v in got.items())
+            + f"; {', '.join(SMALL_EXACT)} and contacts equal")
+        if any(v > limits[key] for key, v in got.items()):
+            raise AssertionError(f"small {route}: {got}")
+        worst[route] = got
     return worst
+
+
+def kernel_entry(name, source, replaces, rows, launches, lib):
+    """The kernels line's entry: the headline shape's numbers (the first
+    row), every other shape beside them."""
+    head = rows[0]
+    return dict(
+        name=name, route="cuda", source=f"{PKG}/csrc/{source}",
+        replaces=f"{PALLAS}:{replaces}", launches=launches[name],
+        max_abs_err=max(r["err"] for r in rows), ms=head["ms"],
+        plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+        bound_by=head["bound_by"], library_ms=head["lib_ms"] if lib else None,
+        shape={key: v for key, v in head.items()
+               if key in ("b", "n", "m", "iters")},
+        other_shapes=[{key: v for key, v in r.items() if key != "err"}
+                      for r in rows[1:]])
 
 
 def main() -> int:
@@ -461,44 +678,41 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+    occupancy = {n: port.kernels.batched_inverse_small_occupancy(n)
+                 for n in (64, 66)}
+    log(f"  K3 matrices resident per SM (occupancy calculator): "
+        f"{occupancy}")
 
-    log("[3] K1 batched_inverse vs plain")
-    m_b, ops = real_tick(port, device)
-    k1 = phase_k1(port, m_b)
-    log("[4] K2 fused_admm_shared vs plain")
-    k2 = phase_k2(port, ops(port.kernels.batched_inverse(m_b)))
+    log("[3] kernels vs plain")
+    rows = phase_kernels(port, device)
 
-    log("[5] slice")
-    counts, gj_counts, metrics = phase_slice(port, device)
+    log("[4] routes")
+    routes, gj_counts, warm_s = phase_routes(port, device)
     small = phase_small(port, device)
 
-    log("[6] kernels")
-    k1_full = k1[-1]
-    # the kernels' other main-path shapes, beside the headline one
-    others = lambda rows, main: [{key: v for key, v in r.items()
-                                  if key != "err"}
-                                 for r in rows if r is not main]
+    log("[5] kernels")
+    # each kernel's launches on the route it is read for: K1/K2 on the
+    # bench's first candidate, K3 on the reduced tier, K4 on the legacy
+    # route; every route's counts beside them
+    main_route = {K1: "amortized", K2: "amortized", K3: "reduced_tier",
+                  K4: "pallas"}
+    launches = {name: routes[r]["launches"][name]
+                for name, r in main_route.items()}
     kernels = [
-        dict(name="batched_inverse", route="cuda",
-             source=f"{PKG}/csrc/gj_inverse.cu",
-             replaces="a1_qp_mpc_controller_tpu/ops/pallas_kernels.py:96",
-             launches=counts["batched_inverse"],
-             launches_gj_warmup=gj_counts["batched_inverse"],
-             max_abs_err=max(r["err"] for r in k1), ms=k1_full["ms"],
-             plain_ms=k1_full["plain_ms"], bound_ms=k1_full["bound_ms"],
-             bound_by=k1_full["bound_by"], library_ms=k1_full["lib_ms"],
-             other_batches=others(k1, k1_full)),
-        dict(name="fused_admm_shared", route="cuda",
-             source=f"{PKG}/csrc/fused_admm_shared.cu",
-             replaces="a1_qp_mpc_controller_tpu/ops/pallas_kernels.py:428",
-             launches=counts["fused_admm_shared"],
-             launches_gj_warmup=gj_counts["fused_admm_shared"],
-             max_abs_err=max(r["err"] for r in k2), ms=k2[0]["ms"],
-             plain_ms=k2[0]["plain_ms"], bound_ms=k2[0]["bound_ms"],
-             bound_by=k2[0]["bound_by"], library_ms=None,
-             gathered=others(k2, k2[0])),
+        kernel_entry(K1, "gj_inverse.cu", 96, rows[K1], launches, True),
+        kernel_entry(K2, "fused_admm_shared.cu", 428, rows[K2], launches,
+                     False),
+        kernel_entry(K3, "gj_inverse_small.cu", 126, rows[K3], launches,
+                     True),
+        kernel_entry(K4, "fused_admm.cu", 275, rows[K4], launches, False),
     ]
-    log(json.dumps({"slice": metrics, "small": small,
+    for entry in kernels:
+        entry["launches_route"] = main_route[entry["name"]]
+        entry["launches_by_route"] = dict(
+            {r: m["launches"][entry["name"]] for r, m in routes.items()},
+            gj_warmup=gj_counts[entry["name"]])
+    kernels[2]["occupancy_per_sm"] = occupancy
+    log(json.dumps({"routes": routes, "small": small, "warm_s": warm_s,
                     "seconds": time.perf_counter() - t_start}))
     log(card)
     log(json.dumps({"kernels": kernels}))

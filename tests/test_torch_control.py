@@ -158,8 +158,9 @@ def test_batched_tick_gj_matches_jax(tick):
 def test_unported_routes_raise(tick):
     args = (tick["cfg"], tick["pb"], tick["cs"], tick["mem"], tick["sens"],
             tick["joy"], tick["dt"])
-    for kw in (dict(admm_backend="pallas"),
-               dict(admm_backend="pallas_shared", kkt_backend="reduced")):
+    for kw in [dict(admm_backend="xla")] + [
+            dict(admm_backend="pallas_shared", kkt_backend=k)
+            for k in ("chol", "schur", "sweep_t", "gj_t")]:
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             tbatched.batched_control_tick(*args, **kw)
 

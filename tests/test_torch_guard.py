@@ -70,6 +70,10 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         lambda: batched.batched_closed_loop_step(
             dataclasses.replace(cfg, mpc_solver_mode="fixed"), pb, terr,
             carry, JoyCmd.zeros(device="cpu"), cfg.control_dt),
+        lambda: batched.batched_closed_loop_step(
+            dataclasses.replace(cfg, mpc_solver_mode="fixed"), pb, terr,
+            carry, JoyCmd.zeros(device="cpu"), cfg.control_dt,
+            kkt_backend="reduced_admm", rescue_capacity=1),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):

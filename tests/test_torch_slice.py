@@ -1,6 +1,7 @@
 """The slice end to end: three closed-loop ticks of the port's
-``batched_closed_loop_step`` against the JAX package's, on both solver
-routes, from identical state; and the top-k order both packages rank by.
+``batched_closed_loop_step`` against the JAX package's, on the 'gj',
+'amortized', 'reduced' and 'full' solver routes, from identical state;
+and the top-k order both packages rank by.
 
 The state is a B = 2 ``make_flat_batch`` stood up for 20 ticks by the JAX
 package (its Pallas kernels in interpret mode), then handed to both. The
@@ -8,7 +9,11 @@ three ticks are the first of the trot (0.3 m/s): contacts flip and the
 post-flip rescue window opens. With a refresh capacity of 1 the
 amortized route runs its refresh-all branch (flips overflow the
 capacity), then refresh-some with tied ages, the accuracy continuation
-and the rho-refactored rescue.
+and the rho-refactored rescue. On 'reduced' (a big bucket of 1) the
+KKT inverse is the contact-pattern-reduced one: K3 on one trotting
+scenario's live block, K1 on the other at full size. 'full' is the
+bench's second candidate ('reduced_admm' at ``kkt_reduced_nr=128``): the
+full-size solve with two rho-refactored rescue rounds.
 
 Tolerances are those of the batched-vs-single gate in
 tests/test_parallel.py: torques 5e-3, forces 0.05 N (float32 noise of
@@ -28,20 +33,25 @@ from a1_qp_mpc_controller_tpu.config import load_profile as jload
 from a1_qp_mpc_controller_tpu.parallel import batched as jb
 from a1_qp_mpc_controller_tpu.types import JoyCmd as JJoy
 from a1_qp_mpc_controller_tpu_torch import config as tcfg
-from a1_qp_mpc_controller_tpu_torch import convert
+from a1_qp_mpc_controller_tpu_torch import convert, tensors
 from a1_qp_mpc_controller_tpu_torch import types as tt
+from a1_qp_mpc_controller_tpu_torch.ops import qp as tqp
 from a1_qp_mpc_controller_tpu_torch.parallel import batched as tb
 from a1_qp_mpc_controller_tpu_torch.sim.closed_loop import LoopCarry
 from a1_qp_mpc_controller_tpu_torch.sim.terrain import Terrain
 
-from torch_parity import CPU, assert_close, jax_to_dict, to_port
+from torch_parity import (
+    CPU, SCHEDULE, assert_close, count_calls, jax_to_dict, to_port,
+)
 
 B = 2
-SCHEDULE = dict(mpc_qp_iters=25, mpc_solver_mode="fixed",
-                mpc_cooldown_ticks=32, mpc_cooldown_stride=4,
-                mpc_cooldown_dense=12, mpc_drift_rescue_n=0.5)
 RESCUE = dict(rescue_capacity=1, rescue_iters=150)
 AMORTIZED = dict(kkt_amortize_capacity=1, kkt_refine_order=3)
+# the tick's keyword arguments on the routes that need more than RESCUE
+ROUTE_KW = {"reduced": dict(kkt_backend="reduced", kkt_reduced_nr=64,
+                            kkt_big_capacity=1),
+            "full": dict(kkt_backend="reduced_admm", kkt_reduced_nr=128,
+                         kkt_big_capacity=160)}
 
 
 @pytest.fixture(scope="module")
@@ -59,6 +69,10 @@ def start():
     amortized = jax.jit(lambda c, k, joy: jb.batched_closed_loop_step(
         cfg, pb, terr, c, joy, dt, kkt_backend="amortized", kkt_carry=k,
         **AMORTIZED, **kw))
+    routes = {
+        name: jax.jit(lambda c, joy, rkw=rkw: jb.batched_closed_loop_step(
+            cfg, pb, terr, c, joy, dt, **rkw, **kw))
+        for name, rkw in ROUTE_KW.items()}
     for _ in range(20):
         carry, _ = gj(carry, JJoy.zeros())
     trot = JJoy.zeros().replace(ctrl_state=jnp.int32(1),
@@ -66,6 +80,7 @@ def start():
     tcfg_, _ = tcfg.load_profile("gazebo_mpc", device=CPU)
     return dict(
         cfg=cfg, carry=carry, trot=trot, gj=gj, amortized=amortized,
+        **routes,
         tcfg=dataclasses.replace(tcfg_, **SCHEDULE),
         pb=to_port(tcfg.RobotParams, pb), terr=to_port(Terrain, terr),
         joy=tt.JoyCmd.zeros(device=CPU).replace(
@@ -73,16 +88,11 @@ def start():
             velx=torch.full((), 0.3)))
 
 
-@pytest.mark.parametrize("route", ["gj", "amortized"])
+@pytest.mark.parametrize("route", ["gj", "amortized", "reduced", "full"])
 def test_three_ticks_match_jax(start, route, monkeypatch):
-    calls = {"_gathered_polish": 0, "_gathered_rescue": 0}
-    for name in calls:
-        fn = getattr(tb, name)
-
-        def counted(*a, _fn=fn, _name=name, **k):
-            calls[_name] += 1
-            return _fn(*a, **k)
-        monkeypatch.setattr(tb, name, counted)
+    calls = count_calls(monkeypatch, ["_gathered_polish", "_gathered_rescue",
+                                      "batched_inverse_small"], [tb, tqp])
+    syncs = tensors.host_syncs
 
     jc, pc = start["carry"], to_port(LoopCarry, start["carry"])
     jk = jb.make_kkt_carry(start["cfg"], B)
@@ -90,11 +100,12 @@ def test_three_ticks_match_jax(start, route, monkeypatch):
     ages = []
     for tick in range(3):
         kw = dict(device=CPU, return_stats=True, **RESCUE)
-        if route == "gj":
-            jc, jst = start["gj"](jc, start["trot"])
+        if route != "amortized":
+            jc, jst = start[route](jc, start["trot"])
             pc, pst = tb.batched_closed_loop_step(
                 start["tcfg"], start["pb"], start["terr"], pc, start["joy"],
-                start["cfg"].control_dt, kkt_backend="gj", **kw)
+                start["cfg"].control_dt,
+                **ROUTE_KW.get(route, dict(kkt_backend=route)), **kw)
         else:
             jc, jk, jst = start["amortized"](jc, jk, start["trot"])
             pc, pk, pst = tb.batched_closed_loop_step(
@@ -131,8 +142,19 @@ def test_three_ticks_match_jax(start, route, monkeypatch):
         assert ages == [[0, 0], [0, 1], [1, 0]], ages
         assert calls["_gathered_polish"] >= 3
         assert calls["_gathered_rescue"] >= 1
-    else:   # the 'gj' route continues its flagged scenarios inline
-        assert calls == {"_gathered_polish": 0, "_gathered_rescue": 0}
+    elif route == "full":   # a first rescue round every tick
+        assert calls["_gathered_rescue"] >= 3
+        assert calls["_gathered_polish"] == 0
+    else:   # 'gj' and 'reduced' continue their flagged scenarios inline
+        assert calls["_gathered_polish"] == calls["_gathered_rescue"] == 0
+    # host reads a tick: none on 'gj', the overflow test on 'reduced',
+    # the straggler round on 'full', four on 'amortized'
+    # (parallel/batched.py's docstring)
+    reads = {"gj": 0, "reduced": 1, "full": 1, "amortized": 4}[route]
+    assert tensors.host_syncs - syncs == 3 * reads
+    # K3 inverts the reduced block on 'reduced' only
+    assert calls["batched_inverse_small"] == (3 if route == "reduced"
+                                              else 0)
 
 
 @pytest.mark.parametrize("k", [1, 3, 128, 1024])
