@@ -1,7 +1,9 @@
 """The batched solver's kernels (counterpart of ``ops/pallas_kernels.py``'s
-``batched_inverse``, ``batched_inverse_small``, ``fused_admm_shared`` and
-``fused_admm``): hand-written CUDA for Hopper (``csrc/``), each beside a
-plain PyTorch version with the same arithmetic.
+``batched_inverse``, ``batched_inverse_small``, ``batched_chol_linv``,
+``fused_admm_shared`` and ``fused_admm``): hand-written CUDA for Hopper
+(``csrc/``), each beside a plain PyTorch version with the same
+arithmetic. The retired variants' kernels are bound in
+``ops/kernels_retired.py`` through the same build.
 
 A wrapper takes the plain version only for a tensor that lies on the
 CPU; for a CUDA tensor it launches its kernel or raises. Each launch adds
@@ -28,16 +30,20 @@ _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parents[2] / "build" / "kernels"
 _SOURCES = {"gj_inverse": "gj_inverse.cu",
             "gj_inverse_small": "gj_inverse_small.cu",
+            "chol_linv": "chol_linv.cu",
             "fused_admm_shared": "fused_admm_shared.cu",
-            "fused_admm": "fused_admm.cu"}
+            "fused_admm": "fused_admm.cu",
+            "inverse_t": "inverse_t.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 MAX_SMEM_BYTES = 232448     # per-block dynamic shared memory on Hopper
 GJ_N_MAX = 169              # batched_inverse's largest n: (2n^2 + 3n) floats
 SMALL_N_MAX = 128           # batched_inverse_small's largest n
+CHOL_P_MAX = 128            # batched_chol_linv's largest panel: 3 p^2 floats
 
 launches = {"batched_inverse": 0, "batched_inverse_small": 0,
-            "fused_admm_shared": 0, "fused_admm": 0}
+            "batched_chol_linv": 0, "fused_admm_shared": 0, "fused_admm": 0,
+            "batched_inverse_T": 0, "batched_inverse_sweep_T": 0}
 build_log: dict[str, str] = {}
 _fns: dict[str, ctypes._CFuncPtr] = {}
 
@@ -45,6 +51,7 @@ _P = ctypes.c_void_p
 _ARGTYPES = {
     "gj_inverse": [_P, _P, ctypes.c_int, ctypes.c_int, _P],
     "gj_inverse_small": [_P, _P, ctypes.c_int, ctypes.c_int, _P],
+    "chol_linv": [_P, _P, ctypes.c_int, ctypes.c_int, _P],
     "fused_admm_shared": [_P] * 16 + [ctypes.c_int] * 4
     + [ctypes.c_float] * 3 + [_P],
     "fused_admm": [_P] * 12 + [ctypes.c_int] * 4
@@ -124,11 +131,11 @@ def _on_card(t: torch.Tensor) -> bool:
     return True
 
 
-# --- K1 and K3: Gauss-Jordan inverse ------------------------------------
+# --- K1, K3 and K5: Gauss-Jordan inverse, panel Cholesky inverse ---------
 
 def _inverse(m: torch.Tensor, name: str, lib: str, plain, n_max: int):
-    """The launch discipline K1 and K3 share: (B, n, n) with n <= n_max
-    on any device, the plain version on the CPU, else the ``lib``
+    """The launch discipline K1, K3 and K5 share: (B, n, n) with n <=
+    n_max on any device, the plain version on the CPU, else the ``lib``
     kernel, counted in ``launches[name]``."""
     if m.ndim != 3 or m.shape[1] != m.shape[2]:
         raise ValueError(f"{name}: expected (B, n, n), got "
@@ -197,6 +204,46 @@ def batched_inverse_small_occupancy(n: int) -> int:
         raise RuntimeError(f"gj_inverse_small occupancy: CUDA error "
                            f"{-blocks}")
     return blocks
+
+
+def batched_chol_linv_plain(a: torch.Tensor) -> torch.Tensor:
+    """L^-1 (lower) of SPD panels (B, p, p), A = L L', the arithmetic of
+    ``_chol_linv_kernel``: p outer-product Cholesky steps ``a - colk rowk
+    / akk`` on the trailing block with L' built row by row, then forward
+    substitution ``(e_k - sum_r L[k, r] M[r, :]) / L[k, k]``, both
+    divisors clamped at 1e-30. The substitution sums r = 0..k-1 in order,
+    as the kernel does (the TPU kernel sums the zero terms r >= k too)."""
+    b, p, _ = a.shape
+    a = a.clone()
+    lt = torch.zeros_like(a)
+    for k in range(p):
+        rowk = a[:, k, :].clone()                            # (B, p)
+        akk = torch.clamp(rowk[:, k:k + 1], min=1e-30)       # (B, 1)
+        colk = a[:, k + 1:, k]
+        a[:, k + 1:, k + 1:] -= (colk[:, :, None] * rowk[:, None, k + 1:]
+                                 / akk[:, :, None])
+        sq = torch.sqrt(akk)
+        lt[:, k, k] = sq[:, 0]
+        lt[:, k, k + 1:] = rowk[:, k + 1:] / sq
+    m = torch.zeros_like(a)
+    eye = torch.eye(p, dtype=a.dtype, device=a.device)
+    for k in range(p):
+        prod = torch.zeros_like(m[:, k, :])
+        for r in range(k):
+            prod = prod + lt[:, r, k:k + 1] * m[:, r, :]
+        m[:, k, :] = (eye[k] - prod) / torch.clamp(lt[:, k, k:k + 1],
+                                                   min=1e-30)
+    return m
+
+
+def batched_chol_linv(a: torch.Tensor) -> torch.Tensor:
+    """L^-1 of a batch of SPD panels (B, p, p) -> (B, p, p) lower
+    triangular, A = L L', through the CUDA kernel (csrc/chol_linv.cu),
+    p <= 128; plain version on the CPU. The exact p: the TPU version's
+    identity tail to a multiple of 8 leaves the top-left block as it
+    is."""
+    return _inverse(a, "batched_chol_linv", "chol_linv",
+                    batched_chol_linv_plain, CHOL_P_MAX)
 
 
 # --- K2: fused shared-basis ADMM -----------------------------------------

@@ -11,6 +11,12 @@ Routes, as ``batched_control_tick`` selects them:
   - 'reduced': the same, with the inverse by contact-pattern shape
     reduction (``ops/qp.reduced_kkt_inverse``: K3 on the live block, K1
     on the big bucket);
+  - 'chol', 'schur', 'sweep_t', 'gj_t': the same, with the inverse by
+    the blocked Cholesky (``ops/linalg.spd_cholesky_inverse``, plain
+    PyTorch as in the JAX package, no kernel of its own), the
+    Schur-complement recursion (``ops/kernels_retired.spd_block_inverse``,
+    K3 at its base; documented unsafe on this family), the batch-last
+    sweep (K6j) or the batch-last Gauss-Jordan (K6g);
   - 'amortized': cross-tick amortized factorization (K1 on the refreshed
     subset, a Neumann correction for the rest);
   - 'reduced_admm': the whole solve (K3 inverse and K2 ADMM) at the
@@ -25,11 +31,11 @@ Routes, as ``batched_control_tick`` selects them:
 Where the JAX package branches on device with ``lax.cond``, this module
 branches in Python on a device scalar (``tensors.host_bool``): each such
 branch is one host sync, counted in ``tensors.host_syncs``. Reads per
-tick with the rescue pool on and the polish off: 'gj' 0, 'pallas' 0,
-'reduced' 1 (the overflow test), 'amortized' 4, 'reduced_admm' at the
-full size 1 (the straggler round), on the reduced tier 3 (overflow, one
-straggler round per tier) or 2 on a tick that overflows to the full
-size.
+tick with the rescue pool on and the polish off: 'gj', 'chol', 'schur',
+'sweep_t', 'gj_t' and 'pallas' 0, 'reduced' 1 (the overflow test),
+'amortized' 4, 'reduced_admm' at the full size 1 (the straggler round),
+on the reduced tier 3 (overflow, one straggler round per tier) or 2 on a
+tick that overflows to the full size.
 """
 
 from __future__ import annotations
@@ -42,6 +48,8 @@ from a1_qp_mpc_controller_tpu_torch.control.controller import (
     control_tick_build, control_tick_finish,
 )
 from a1_qp_mpc_controller_tpu_torch.models import srb
+from a1_qp_mpc_controller_tpu_torch.ops import kernels_retired as retired
+from a1_qp_mpc_controller_tpu_torch.ops import linalg
 from a1_qp_mpc_controller_tpu_torch.ops import qp as qpx
 from a1_qp_mpc_controller_tpu_torch.ops.kernels import (
     batched_inverse, batched_inverse_small,
@@ -286,7 +294,8 @@ def _amortized_full_solve(cfg: A1Config, prob, scal_new, mu, settings,
 def _gj_solve(cfg: A1Config, prob, scal, mu, settings, kkt_inverse, *,
               rescue_capacity: int, rescue_iters: int):
     """Per-tick refactor: ``kkt_inverse`` of every scenario's scaled KKT
-    ('gj': K1; 'reduced': the contact-pattern-reduced inverse), the fused
+    ('reduced': the contact-pattern-reduced inverse; the others:
+    ``_KKT_INVERSES``), the fused
     ADMM, and a flip-rescue continuation of the worst
     ``rescue_capacity`` unconverged or flagged scenarios."""
     dtype, dev = prob.q_vec.dtype, prob.q_vec.device
@@ -509,6 +518,14 @@ def _legacy_solve(cfg: A1Config, prob, scal, settings, *,
 
 
 _UNPORTED = "is not ported: ROADMAP.md, 'The other batched routes'"
+# the full-size inverse of each per-tick-refactor route (``_gj_solve``)
+_KKT_INVERSES = {
+    "gj": batched_inverse,
+    "chol": lambda m: linalg.spd_cholesky_inverse(m, panel=30),
+    "schur": lambda m: retired.spd_block_inverse(m, base=32),
+    "sweep_t": retired.batched_inverse_sweep_T_masked,
+    "gj_t": retired.batched_inverse_T,
+}
 
 
 def batched_control_tick(cfg: A1Config, params_b: RobotParams, cs_b, mem_b,
@@ -533,7 +550,7 @@ def batched_control_tick(cfg: A1Config, params_b: RobotParams, cs_b, mem_b,
         raise NotImplementedError(f"admm_backend={admm_backend!r} "
                                   + _UNPORTED)
     if admm_backend == "pallas_shared" and kkt_backend not in (
-            "gj", "amortized", "reduced", "reduced_admm"):
+            "amortized", "reduced", "reduced_admm", *_KKT_INVERSES):
         raise NotImplementedError(f"kkt_backend={kkt_backend!r} "
                                   + _UNPORTED)
     assert cfg.mpc_solver_mode == "fixed"
@@ -574,8 +591,8 @@ def batched_control_tick(cfg: A1Config, params_b: RobotParams, cs_b, mem_b,
                             m, live, n_r=kkt_reduced_nr,
                             big_capacity=kkt_big_capacity), **rescue)
     else:
-        sol = _gj_solve(cfg, prob, scal, mu, settings, batched_inverse,
-                        **rescue)
+        sol = _gj_solve(cfg, prob, scal, mu, settings,
+                        _KKT_INVERSES[kkt_backend], **rescue)
     out = control_tick_finish(cfg, params_b, cs, mem, sol) + extras
     if return_stats:
         out = out + ({"converged": sol.converged, "prim_res": sol.prim_res,

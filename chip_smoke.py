@@ -7,9 +7,9 @@ NVIDIA card and check it.
 Phases, in order:
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: the four CUDA kernels from ``a1_qp_mpc_controller_tpu_torch/csrc``
-   with nvcc for ``sm_90a`` (one nvcc process each, all at once), and
-   K3's occupancy by CUDA's calculator;
+2. build: the six CUDA sources from ``a1_qp_mpc_controller_tpu_torch/csrc``
+   with nvcc for ``sm_90a`` (one nvcc process each, all at once; ptxas
+   registers and spills logged), and K3's occupancy by CUDA's calculator;
 3. the kernels against their plain PyTorch versions on the operands of a
    real B = 1024 trot tick, at every shape a driven route gives them:
    - K1 (Gauss-Jordan KKT inverse) at B = 40/48/80/96/128/160/192/1024
@@ -23,18 +23,35 @@ Phases, in order:
      (48, 66) and (1024, 64), bit for bit;
    - K4 (fused ADMM, per-scenario A) at B = 1024, n = 120, m = 200, 25
      iterations;
+   - exact float32 products (TF32 off, a panel product against float64);
+   - K5 (panel Cholesky inverse) at (1024, 30, 30) on the first diagonal
+     panel of the full-size KKT batch and on the last, trailing one as
+     ``spd_cholesky_inverse_hybrid`` gives it to K5, bit for bit; then the
+     hybrid itself on the whole batch, its K5 launches counted from 0,
+     held to ||MX - I||_max <= 1e-3 beside ``spd_cholesky_inverse`` (the
+     'chol' route's inverse);
+   - K6g (batch-last Gauss-Jordan) and the batch-last sweep kernel (K6j,
+     shared by K6h, K6i and K6k; both pivot-column reads) at (1024, 120),
+     bit for bit;
+   - K6a (Schur recursion, K3 at the base) against itself with K3's plain
+     version at the base: the same NaN pattern, the finite entries within
+     1e-5 of their scale; its finite share and ||MX - I||_max reported;
 4. the routes at B = 1024 on ``gazebo_mpc`` with the bench schedule: the
    bench warm-up (120 stand and 380 trot ticks on 'gj'), then, each from
    a copy of that one warmed state, 'amortized' and the bench's 'full'
    candidate and the reduced tier of 'reduced_admm' (40 untimed and 100
-   timed ticks each), then 'reduced' and the legacy 'pallas' route (4
-   untimed and 20 timed). The launch counts are set to 0 just before each
-   route's ticks (and before the 'gj' warm-up) and read just after; every
-   kernel of a route must have launched on it. A small batch is then run
-   through the same first trot ticks on the card and on the CPU (plain
-   versions), which must agree in their torques, forces, contacts and
-   carried controller state: on 'gj', 'amortized' and 'full' from one
-   state, on the reduced tier tick by tick from the card's state;
+   timed ticks each), then 'reduced', the legacy 'pallas' route, 'gj',
+   'chol', 'schur', 'sweep_t' and 'gj_t' (4 untimed and 20 timed). The
+   launch counts are set to 0 just before each route's ticks (and before
+   the 'gj' warm-up) and read just after; every kernel of a route must
+   have launched on it. Every route but 'schur' (documented unsafe on
+   this family: reported, not held) must keep every scenario alive;
+   'chol', 'sweep_t' and 'gj_t' must converge within 0.005 of 'gj'. A
+   small batch is then run through the same first trot ticks on the card
+   and on the CPU (plain versions), which must agree in their torques,
+   forces, contacts and carried controller state: on 'gj', 'amortized',
+   'full', 'chol', 'sweep_t' and 'gj_t' from one state, on the reduced
+   tier tick by tick from the card's state;
 5. one JSON line listing each kernel, then the device line.
 
 Every failed check raises. The script needs a CUDA card and the
@@ -56,6 +73,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PKG = "a1_qp_mpc_controller_tpu_torch"
 PALLAS = "a1_qp_mpc_controller_tpu/ops/pallas_kernels.py"
+RETIRED = "a1_qp_mpc_controller_tpu/ops/pallas_retired.py"
 
 BATCH = 1024
 STAND_TICKS = 120          # bench.py _warm_trot
@@ -76,8 +94,13 @@ FULL_KW = dict(admm_backend="pallas_shared", kkt_backend="reduced_admm",
 TIER_KW = dict(FULL_KW, kkt_reduced_nr=64)
 REDUCED_KW = dict(TIER_KW, kkt_backend="reduced")
 LEGACY_KW = dict(admm_backend="pallas", use_pallas=True)
+# the per-tick-refactor routes that differ from 'gj' only in the inverse
+CHOL_KW, SCHUR_KW, SWEEP_KW, GJ_T_KW = (
+    dict(GJ_KW, kkt_backend=k) for k in ("chol", "schur", "sweep_t", "gj_t"))
 K1, K2 = "batched_inverse", "fused_admm_shared"
 K3, K4 = "batched_inverse_small", "fused_admm"
+K5, K6G = "batched_chol_linv", "batched_inverse_T"
+K6S = "batched_inverse_sweep_T"
 # route: (tick keyword arguments, untimed ticks, timed ticks, the kernels
 # that must launch on it)
 ROUTES = {
@@ -86,9 +109,21 @@ ROUTES = {
     "reduced_tier": (TIER_KW, 40, 100, {K1, K2, K3}),
     "reduced": (REDUCED_KW, 4, 20, {K1, K2, K3}),
     "pallas": (LEGACY_KW, 4, 20, {K1, K4}),
+    "gj": (GJ_KW, 4, 20, {K1, K2}),
+    "chol": (CHOL_KW, 4, 20, {K2}),
+    "schur": (SCHUR_KW, 4, 20, {K3, K2}),
+    "sweep_t": (SWEEP_KW, 4, 20, {K6S, K2}),
+    "gj_t": (GJ_T_KW, 4, 20, {K6G, K2}),
 }
 # routes whose solve carries the rescue pool, held to the converged limit
 CONVERGED_ROUTES = ("amortized", "full", "reduced_tier")
+# routes of the same numerics class as 'gj' (sequential elimination or
+# Cholesky), held to within CONVERGED_GAP below 'gj''s converged fraction
+# from the same state; 'schur' is documented unsafe on this family and
+# is reported, not held (neither alive nor converged)
+LIKE_GJ = ("chol", "sweep_t", "gj_t")
+CONVERGED_GAP = 0.005
+UNHELD_ALIVE = ("schur",)
 # the small card-vs-CPU check: route -> (tick keyword arguments, whether
 # each CPU tick starts from the card's state). Below B = 160 the big
 # bucket would hold the whole batch, so the reduced tier gets one of 2.
@@ -102,6 +137,9 @@ SMALL_ROUTES = {
     "amortized": (dict(AMORTIZED_KW, kkt_amortize_capacity=2), False),
     "full": (FULL_KW, False),
     "reduced_tier": (dict(TIER_KW, kkt_big_capacity=2), True),
+    "chol": (CHOL_KW, False),
+    "sweep_t": (SWEEP_KW, False),
+    "gj_t": (GJ_T_KW, False),
 }
 # the controller state a tick carries into the next, compared after each
 # small tick: the discrete leaves exactly, the warm start and the
@@ -112,11 +150,19 @@ SMALL_EXACT = ("mpc_flip_cooldown", "mpc_warm_started", "mpc_prev_contacts")
 # device-memory bandwidth
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_S = 3.35e12
+SPIN_CYCLES = 20_000_000   # ~10 ms at the H100's ~1.98 GHz boost clock
 
 # tolerances, each with its reason
 K1_RESID_TOL = 1e-3    # ||MX - I||_max of sequential Gauss-Jordan on the KKT family
 K2_REL_TOL = 1e-4      # A-products summed in another order over the iterations
 K4_REL_TOL = 1e-4      # the same, with the per-scenario A
+# K6a with the K3 kernel against K6a with K3's plain version: K3 is
+# bit-equal to its plain version, so the products that follow see the
+# same operands; the tolerance (of the finite entries' scale) only
+# allows for a product library that rounds differently from run to run
+K6A_REL_TOL = 1e-5
+# exact float32 products: TF32 keeps 10 mantissa bits (~1e-3 relative)
+F32_PRODUCT_REL_TOL = 1e-5
 SMALL_TQ_TOL = 5e-3    # torques, N m, after 3 ticks (tests/test_parallel.py)
 SMALL_F_TOL = 0.05     # ground-reaction forces, N
 # the carried state: its first step is the forces above; the later
@@ -144,10 +190,13 @@ def card_line() -> str:
 
 def cuda_ms(fn, reps: int) -> float:
     """Mean milliseconds of ``fn()`` on the card, by CUDA events around
-    ``reps`` calls after one warm-up call."""
+    ``reps`` calls after one warm-up call. The card first spins for
+    ~10 ms, so that the host enqueues the calls ahead of it and a short
+    kernel's time is its own, not the host's launch rate."""
     import torch
     fn()
     torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -173,7 +222,8 @@ class Port:
         sys.path.insert(0, str(ROOT))
         for name in ("config", "types", "tensors", "control.grf",
                      "control.controller", "models.srb", "ops.qp",
-                     "ops.kernels", "parallel.batched", "sim.plant"):
+                     "ops.kernels", "ops.kernels_retired", "ops.linalg",
+                     "parallel.batched", "sim.plant"):
             setattr(self, name.split(".")[-1],
                     importlib.import_module(f"{PKG}.{name}"))
 
@@ -255,15 +305,28 @@ def real_tick(port, device):
             sp, settings, prob.warm_x, prob.warm_y, prob.rho0, minv))
 
 
-def inverse_rows(port, name, m_all, batches, fn, plain):
-    """A Gauss-Jordan kernel against its plain version on the first b
-    matrices of ``m_all`` for each b: bit-equal, ||MX - I||_max within
-    K1_RESID_TOL; times of the kernel, the plain version,
-    ``torch.linalg.inv`` and the bound: each matrix read and written
-    once, and 2n^2(n + 1) operations per matrix, a multiply and a
+def gj_flops(n: int) -> int:
+    """A Gauss-Jordan inverse's operations per matrix: a multiply and a
     subtract for each of the n + 1 columns of [M | I] per row and pivot
     that are not yet unit or zero columns (at pivot k, M's columns
     k..n-1 and the inverse's columns 0..k)."""
+    return 2 * n * n * (n + 1)
+
+
+def sweep_flops(n: int) -> int:
+    """The sweep operator's: a multiply and a subtract per entry and
+    pivot (one n x n array)."""
+    return 2 * n ** 3
+
+
+def inverse_rows(port, name, m_all, batches, fn, plain, flops=gj_flops,
+                 resid_tol=K1_RESID_TOL):
+    """An inverse kernel (through ``fn``, (B, n, n) in and out) against
+    its plain version on the first b matrices of ``m_all`` for each b:
+    bit-equal, ||MX - I||_max within ``resid_tol`` (reported only where
+    None); times of the kernel, the plain version, ``torch.linalg.inv``
+    and the bound: each matrix read and written once, ``flops(n)``
+    operations per matrix."""
     import torch
     rows = []
     for b in batches:
@@ -279,17 +342,153 @@ def inverse_rows(port, name, m_all, batches, fn, plain):
         ms = cuda_ms(lambda: fn(m), 20)
         plain_ms = cuda_ms(lambda: plain(m), 3)
         lib_ms = cuda_ms(lambda: torch.linalg.inv(m), 10)
-        bnd, by = bound_ms(b * 2 * n * n * (n + 1), 2 * b * n * n * 4)
+        bnd, by = bound_ms(b * flops(n), 2 * b * n * n * 4)
         log(f"  {name} B={b} n={n}: bit-equal {equal} (max|kernel-plain| "
-            f"{err:.3e}), ||MX-I||_max={resid:.3e} (tol {K1_RESID_TOL}); "
+            f"{err:.3e}), ||MX-I||_max={resid:.3e} (tol {resid_tol}); "
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.linalg.inv "
             f"{lib_ms:.4f} ms, bound {bnd:.4f} ms ({by})")
-        if not (equal and resid <= K1_RESID_TOL):
+        if not (equal and (resid_tol is None or resid <= resid_tol)):
             raise AssertionError(f"{name} disagrees at B={b}, n={n}: "
                                  f"err {err}, resid {resid}")
-        rows.append(dict(b=b, n=n, err=err, ms=ms, plain_ms=plain_ms,
-                         lib_ms=lib_ms, bound_ms=bnd, bound_by=by))
+        rows.append(dict(b=b, n=n, err=err, resid=resid, ms=ms,
+                         plain_ms=plain_ms, lib_ms=lib_ms, bound_ms=bnd,
+                         bound_by=by))
     return rows
+
+
+def f32_products(port, m):
+    """TF32 stays off on the products of the 'chol', hybrid and 'schur'
+    inverses: the flags, and one of the hybrid's panel products (A21
+    L11^-T shape) against float64. Returns its relative error."""
+    import torch
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.get_float32_matmul_precision())
+    if flags != (False, "highest"):
+        raise AssertionError(f"TF32 is on for float32 products: {flags}")
+    a, b = m[:, 30:, :30], m[:, :30, :30].transpose(1, 2)
+    ref = a.double() @ b.double()
+    rel = float(((a @ b).double() - ref).abs().max() / ref.abs().max())
+    log(f"  float32 products: allow_tf32 {flags[0]}, precision {flags[1]!r}; "
+        f"{tuple(a.shape)} @ {tuple(b.shape)} against float64: max rel "
+        f"{rel:.3e} (tol {F32_PRODUCT_REL_TOL})")
+    if rel > F32_PRODUCT_REL_TOL:
+        raise AssertionError(f"float32 products are not exact: {rel}")
+    return rel
+
+
+def resid_max(m, x):
+    import torch
+    eye = torch.eye(m.shape[-1], dtype=torch.float64, device=m.device)
+    return float((m.double() @ x.double() - eye).abs().max())
+
+
+def chol_rows(port, m):
+    """The hybrid on the whole KKT batch, K5's launches counted from 0
+    just before it and read just after (the panels it gives K5 kept);
+    K5 against its plain version on the first and the last (trailing)
+    panel, bit for bit; the hybrid held to ||MX - I||_max beside the
+    'chol' route's ``spd_cholesky_inverse``. Returns (K5 rows, the
+    hybrid's K5 launches, the hybrid/chol record)."""
+    import torch
+    k, linalg = port.kernels, port.linalg
+    panels = []
+    launch = linalg.batched_chol_linv
+
+    def record(a):
+        panels.append(a.clone())
+        return launch(a)
+
+    linalg.batched_chol_linv = record
+    try:
+        k.reset_launches()
+        hyb = linalg.spd_cholesky_inverse_hybrid(m)
+        torch.cuda.synchronize()
+        path_launches = k.launches[K5]
+    finally:
+        linalg.batched_chol_linv = launch
+    if path_launches != len(panels) or not path_launches:
+        raise AssertionError(f"K5 launched {path_launches} times for "
+                             f"{len(panels)} panels")
+    rows = []
+    for label, a in (("first", panels[0]), ("trailing", panels[-1])):
+        b, p, _ = a.shape
+        x = k.batched_chol_linv(a)
+        torch.cuda.synchronize()
+        ref = k.batched_chol_linv_plain(a)
+        equal = bool(torch.equal(x, ref))
+        err = float((x - ref).abs().max())
+        eye = torch.eye(p, dtype=a.dtype, device=a.device)
+        ms = cuda_ms(lambda: k.batched_chol_linv(a), 20)
+        plain_ms = cuda_ms(lambda: k.batched_chol_linv_plain(a), 3)
+        lib_ms = cuda_ms(lambda: torch.linalg.solve_triangular(
+            torch.linalg.cholesky(a), eye, upper=False), 10)
+        # a Cholesky and a triangular inverse, p^3 / 3 operations each
+        bnd, by = bound_ms(b * 2 * p ** 3 / 3, 2 * b * p * p * 4)
+        log(f"  K5 {label} panel B={b} p={p}: bit-equal {equal} "
+            f"(max|kernel-plain| {err:.3e}); kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, cholesky + solve_triangular {lib_ms:.4f} "
+            f"ms, bound {bnd:.4f} ms ({by})")
+        if not equal:
+            raise AssertionError(f"K5 disagrees on the {label} panel: {err}")
+        rows.append(dict(b=b, n=p, panel=label, err=err, ms=ms,
+                         plain_ms=plain_ms, lib_ms=lib_ms, bound_ms=bnd,
+                         bound_by=by))
+    chol = linalg.spd_cholesky_inverse(m)
+    rec = dict(hybrid_resid=resid_max(m, hyb), chol_resid=resid_max(m, chol),
+               rel_diff=float((hyb - chol).abs().max() / chol.abs().max()),
+               hybrid_ms=cuda_ms(
+                   lambda: linalg.spd_cholesky_inverse_hybrid(m), 5),
+               chol_ms=cuda_ms(lambda: linalg.spd_cholesky_inverse(m), 3),
+               k5_launches=path_launches)
+    log(f"  spd_cholesky_inverse_hybrid B={m.shape[0]} n={m.shape[1]}: "
+        f"{path_launches} K5 launches, ||MX-I||_max {rec['hybrid_resid']:.3e} "
+        f"(tol {K1_RESID_TOL}); spd_cholesky_inverse ('chol') "
+        f"{rec['chol_resid']:.3e}; max rel |hybrid-chol| "
+        f"{rec['rel_diff']:.3e}; hybrid {rec['hybrid_ms']:.3f} ms, chol "
+        f"{rec['chol_ms']:.3f} ms")
+    if rec["hybrid_resid"] > K1_RESID_TOL:
+        raise AssertionError(f"hybrid residual {rec['hybrid_resid']}")
+    return rows, path_launches, rec
+
+
+def block_inverse_row(port, m):
+    """K6a (K3 at the base) against itself with K3's plain version at the
+    base: the same NaN pattern, the finite entries within K6A_REL_TOL of
+    their scale; its finite share (matrices with no NaN or inf),
+    ||MX - I||_max over those, and the times."""
+    import torch
+    k, r = port.kernels, port.kernels_retired
+    x = r.spd_block_inverse(m)
+    torch.cuda.synchronize()
+    base = k.batched_inverse_small
+    k.batched_inverse_small = k.batched_inverse_small_plain
+    try:
+        ref = r.spd_block_inverse(m)
+        plain_ms = cuda_ms(lambda: r.spd_block_inverse(m), 3)
+    finally:
+        k.batched_inverse_small = base
+    same_nan = bool(torch.equal(torch.isnan(x), torch.isnan(ref)))
+    fin = torch.isfinite(x) & torch.isfinite(ref)
+    scale = float(ref[fin].abs().max()) if bool(fin.any()) else 1.0
+    rel = float((x - ref)[fin].abs().max()) / scale if bool(fin.any()) else 0.0
+    ok = torch.isfinite(x).flatten(1).all(dim=1)
+    share = float(ok.float().mean())
+    resid = resid_max(m[ok], x[ok]) if bool(ok.any()) else float("nan")
+    b, n, _ = m.shape
+    ms = cuda_ms(lambda: r.spd_block_inverse(m), 10)
+    lib_ms = cuda_ms(lambda: torch.linalg.inv(m), 10)
+    bnd, by = bound_ms(b * gj_flops(n), 2 * b * n * n * 4)
+    log(f"  K6a spd_block_inverse B={b} n={n}: same NaN pattern as with the "
+        f"plain base {same_nan}, finite entries max rel {rel:.3e} (tol "
+        f"{K6A_REL_TOL}); finite share {share:.5f}, ||MX-I||_max over the "
+        f"finite {resid:.3e}; K3 base {ms:.4f} ms, plain base "
+        f"{plain_ms:.4f} ms, torch.linalg.inv {lib_ms:.4f} ms, bound "
+        f"{bnd:.4f} ms ({by})")
+    if not (same_nan and rel <= K6A_REL_TOL):
+        raise AssertionError(f"K6a with K3 differs from its plain base: "
+                             f"NaN pattern {same_nan}, rel {rel}")
+    return dict(b=b, n=n, rel=rel, finite_share=share, resid=resid, ms=ms,
+                plain_ms=plain_ms, lib_ms=lib_ms, bound_ms=bnd, bound_by=by)
 
 
 def admm_rows(port, name, ops_all, shapes, fn, plain, tol, flops_of,
@@ -405,6 +604,31 @@ def phase_kernels(port, device):
     ops_l = tick["ops_legacy"](k.batched_inverse(tick["m_dense"]))
     out[K4] = admm_rows(port, "K4", ops_l, ((BATCH, 25),), k.fused_admm,
                         k.fused_admm_plain, K4_REL_TOL, k4_flops, k4_bytes)
+    m = tick["m_full"]
+    log("[3e] float32 products")
+    out["f32_product_rel"] = f32_products(port, m)
+    log("[3f] K5 batched_chol_linv vs plain, the hybrid vs 'chol'")
+    out[K5], out["k5_path_launches"], out["hybrid"] = chol_rows(port, m)
+    log("[3g] K6g batched_inverse_T and the batch-last sweep vs plain")
+    r = port.kernels_retired
+
+    def batch_last(plain, **kw):
+        return lambda x: plain(x.permute(1, 2, 0).contiguous(),
+                               **kw).permute(2, 0, 1).contiguous()
+
+    out[K6G] = inverse_rows(port, "K6g", m, (BATCH,), r.batched_inverse_T,
+                            batch_last(r.gj_inverse_T_plain), resid_tol=None)
+    out[K6S] = (
+        inverse_rows(port, "sweep (K6j)", m, (BATCH,),
+                     r.batched_inverse_sweep_T_masked,
+                     batch_last(r.sweep_inverse_T_plain), flops=sweep_flops,
+                     resid_tol=None)
+        + inverse_rows(port, "sweep sym_col (K6h)", m, (BATCH,),
+                       lambda x: r.batched_inverse_sweep_T(x, sym_col=True),
+                       batch_last(r.sweep_inverse_T_plain, sym_col=True),
+                       flops=sweep_flops, resid_tol=None))
+    log("[3h] K6a spd_block_inverse (K3 base)")
+    out["k6a"] = block_inverse_row(port, m)
     return out
 
 
@@ -500,7 +724,7 @@ def run_route(port, route, env, carry0, device):
         f"{conv_frac}, host reads/tick {reads} (synchronizing calls/tick "
         f"{synced}), contact flips {metrics['flips']}, mean z "
         f"{metrics['mean_z']:.4f} m; launches {counts}")
-    if alive != 1.0:
+    if alive != 1.0 and route not in UNHELD_ALIVE:
         raise AssertionError(f"{route}: alive {alive}")
     if route in CONVERGED_ROUTES and conv_frac < CONVERGED_MIN:
         raise AssertionError(f"{route}: converged {conv_frac}")
@@ -531,6 +755,13 @@ def phase_routes(port, device):
     env = (cfg, pb, terr, joy_w)
     routes = {name: run_route(port, name, env, carry, device)
               for name in ROUTES}
+    gj_conv = routes["gj"]["converged"]
+    for name in LIKE_GJ:
+        conv = routes[name]["converged"]
+        log(f"  {name}: converged {conv} against 'gj' {gj_conv} (at most "
+            f"{CONVERGED_GAP} below)")
+        if conv < gj_conv - CONVERGED_GAP:
+            raise AssertionError(f"{name}: converged {conv}, 'gj' {gj_conv}")
     return routes, gj_counts, warm_s
 
 
@@ -642,7 +873,7 @@ def kernel_entry(name, source, replaces, rows, launches, lib):
     head = rows[0]
     return dict(
         name=name, route="cuda", source=f"{PKG}/csrc/{source}",
-        replaces=f"{PALLAS}:{replaces}", launches=launches[name],
+        replaces=replaces, launches=launches[name],
         max_abs_err=max(r["err"] for r in rows), ms=head["ms"],
         plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
         bound_by=head["bound_by"], library_ms=head["lib_ms"] if lib else None,
@@ -691,28 +922,51 @@ def main() -> int:
     small = phase_small(port, device)
 
     log("[5] kernels")
-    # each kernel's launches on the route it is read for: K1/K2 on the
+    # each kernel's launches on the path it is read for: K1/K2 on the
     # bench's first candidate, K3 on the reduced tier, K4 on the legacy
-    # route; every route's counts beside them
+    # route, K6g and the sweep on their routes, K5 in the hybrid inverse
+    # of the KKT batch (no route calls it, as in the JAX package); every
+    # route's counts beside them
     main_route = {K1: "amortized", K2: "amortized", K3: "reduced_tier",
-                  K4: "pallas"}
+                  K4: "pallas", K5: "spd_cholesky_inverse_hybrid",
+                  K6G: "gj_t", K6S: "sweep_t"}
     launches = {name: routes[r]["launches"][name]
-                for name, r in main_route.items()}
+                for name, r in main_route.items() if r in routes}
+    launches[K5] = rows["k5_path_launches"]
     kernels = [
-        kernel_entry(K1, "gj_inverse.cu", 96, rows[K1], launches, True),
-        kernel_entry(K2, "fused_admm_shared.cu", 428, rows[K2], launches,
-                     False),
-        kernel_entry(K3, "gj_inverse_small.cu", 126, rows[K3], launches,
+        kernel_entry(K1, "gj_inverse.cu", f"{PALLAS}:96", rows[K1], launches,
                      True),
-        kernel_entry(K4, "fused_admm.cu", 275, rows[K4], launches, False),
+        kernel_entry(K2, "fused_admm_shared.cu", f"{PALLAS}:428", rows[K2],
+                     launches, False),
+        kernel_entry(K3, "gj_inverse_small.cu", f"{PALLAS}:126", rows[K3],
+                     launches, True),
+        kernel_entry(K4, "fused_admm.cu", f"{PALLAS}:275", rows[K4],
+                     launches, False),
+        kernel_entry(K5, "chol_linv.cu", f"{PALLAS}:212", rows[K5], launches,
+                     True),
+        kernel_entry(K6G, "inverse_t.cu", f"{RETIRED}:564", rows[K6G],
+                     launches, True),
+        kernel_entry(K6S, "inverse_t.cu", f"{RETIRED}:741", rows[K6S],
+                     launches, True),
     ]
     for entry in kernels:
         entry["launches_route"] = main_route[entry["name"]]
         entry["launches_by_route"] = dict(
             {r: m["launches"][entry["name"]] for r, m in routes.items()},
             gj_warmup=gj_counts[entry["name"]])
+    kernels[4]["launches_by_route"][main_route[K5]] = launches[K5]
     kernels[2]["occupancy_per_sm"] = occupancy
+    # K6a has no kernel of its own: K3 at its base (4 launches a tick on
+    # 'schur'), products in torch.matmul
+    kernels[2]["serves"] = {"K6a spd_block_inverse": dict(
+        replaces=f"{RETIRED}:41", **rows["k6a"])}
+    kernels[4]["hybrid"] = rows["hybrid"]
+    kernels[6]["shared_by"] = {
+        "K6h batched_inverse_sweep_T": f"{RETIRED}:902",
+        "K6i batched_inverse_sweep_T_chunked": f"{RETIRED}:638",
+        "K6k batched_inverse_sweep_T_masked2": f"{RETIRED}:824"}
     log(json.dumps({"routes": routes, "small": small, "warm_s": warm_s,
+                    "f32_product_rel": rows["f32_product_rel"],
                     "seconds": time.perf_counter() - t_start}))
     log(card)
     log(json.dumps({"kernels": kernels}))
