@@ -1,7 +1,9 @@
-"""The split control tick (counterpart of ``control_tick_build`` /
-``control_tick_finish`` in ``control/controller.py``): everything before
-the MPC solve, and applying an externally computed solution. The solve
-in between is the batched executor's (parallel/batched.py)."""
+"""The control tick over a batch (counterpart of ``control/controller.py``):
+``control_tick``, the whole tick with its own solve (the JAX package's
+``control_tick`` under ``vmap``), and the split tick the batched executor
+(parallel/batched.py) runs: ``control_tick_build``, everything before
+the MPC solve, and ``control_tick_finish``, applying an externally
+computed solution."""
 
 from __future__ import annotations
 
@@ -16,14 +18,10 @@ from a1_qp_mpc_controller_tpu_torch.types import (
 )
 
 
-def control_tick_build(cfg: A1Config, params: RobotParams, cs: CtrlState,
-                       mem: CtrlMem, sensors: SensorData, joy: JoyCmd,
-                       dt: torch.Tensor, with_a_mat: bool = False):
-    """ingest -> FSM -> gait -> swing -> EKF -> terrain adaptation ->
-    condensed MPC QP; returns (cs, mem, MpcProblem). MPC profiles only.
-    ``with_a_mat`` materializes the per-scenario constraint matrix (the
-    legacy solve reads it; the shared-basis solve does not)."""
-    assert cfg.stance_leg_control_type == 1, "split tick is MPC-only"
+def _sense_and_plan(cfg: A1Config, params: RobotParams, cs: CtrlState,
+                    mem: CtrlMem, sensors: SensorData, joy: JoyCmd,
+                    dt: torch.Tensor):
+    """ingest -> FSM -> gait -> swing -> EKF; returns (cs, mem)."""
     cs, mem = ingest_sensors(cfg, params, cs, mem, sensors)
     if not cfg.use_estimator:
         cs = cs.replace(root_pos=sensors.root_pos,
@@ -34,6 +32,30 @@ def control_tick_build(cfg: A1Config, params: RobotParams, cs: CtrlState,
     if cfg.use_estimator:
         ekf, cs = estimator.step(cfg, params, cs, mem.ekf, dt)
         mem = mem.replace(ekf=ekf)
+    return cs, mem
+
+
+def control_tick(cfg: A1Config, params: RobotParams, cs: CtrlState,
+                 mem: CtrlMem, sensors: SensorData, joy: JoyCmd,
+                 dt: torch.Tensor):
+    """The full control step of each scenario: sense and plan, the GRF
+    solve (``grf.compute_grf``), joint torques. Returns (cs, mem,
+    (B, 12) torques)."""
+    cs, mem = _sense_and_plan(cfg, params, cs, mem, sensors, joy, dt)
+    cs, mem = grf.compute_grf(cfg, params, cs, mem, dt)
+    cs, mem = torque.compute_joint_torques(cfg, params, cs, mem)
+    return cs, mem, cs.joint_torques
+
+
+def control_tick_build(cfg: A1Config, params: RobotParams, cs: CtrlState,
+                       mem: CtrlMem, sensors: SensorData, joy: JoyCmd,
+                       dt: torch.Tensor, with_a_mat: bool = False):
+    """ingest -> FSM -> gait -> swing -> EKF -> terrain adaptation ->
+    condensed MPC QP; returns (cs, mem, MpcProblem). MPC profiles only.
+    ``with_a_mat`` materializes the per-scenario constraint matrix (the
+    legacy solve reads it; the shared-basis solve does not)."""
+    assert cfg.stance_leg_control_type == 1, "split tick is MPC-only"
+    cs, mem = _sense_and_plan(cfg, params, cs, mem, sensors, joy, dt)
     cs, mem = grf.terrain_adaptation(cfg, cs, mem)
     prob = grf.mpc_problem(cfg, params, cs, mem, dt,
                            with_a_mat=with_a_mat)

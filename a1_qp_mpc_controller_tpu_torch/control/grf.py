@@ -1,7 +1,8 @@
 """Stance-force computation, MPC path (counterpart of the MPC subset of
 ``control/grf.py``): terrain adaptation, the per-contact-pattern scaling
 lookup, the condensed MPC QP with its warm-start/flip/rescue-window
-bookkeeping, and applying a solution."""
+bookkeeping, applying a solution, and ``compute_grf``'s MPC branch over a
+batch. The stand-QP branch is not ported yet."""
 
 from __future__ import annotations
 
@@ -14,7 +15,9 @@ from a1_qp_mpc_controller_tpu_torch.config import (
 )
 from a1_qp_mpc_controller_tpu_torch.models import srb
 from a1_qp_mpc_controller_tpu_torch.ops import qp as qpx
-from a1_qp_mpc_controller_tpu_torch.tensors import const, tensorclass, where_b
+from a1_qp_mpc_controller_tpu_torch.tensors import (
+    const, select_tree, tensorclass, where_b,
+)
 from a1_qp_mpc_controller_tpu_torch.types import CtrlMem, CtrlState
 from a1_qp_mpc_controller_tpu_torch.utils import mathx
 from a1_qp_mpc_controller_tpu_torch.utils.filters import filter_update_masked
@@ -212,3 +215,60 @@ def mpc_apply_solution(cfg: A1Config, cs: CtrlState, mem: CtrlMem,
     forces_body = torch.where(bad[:, :, None], cs.foot_forces_grf,
                               forces_body)
     return cs.replace(foot_forces_grf=forces_body), mem
+
+
+def compute_grf(cfg: A1Config, params: RobotParams, cs: CtrlState,
+                mem: CtrlMem, dt: torch.Tensor
+                ) -> Tuple[CtrlState, CtrlMem]:
+    """The per-tick stance-force solve over a batch, each scenario as the
+    JAX package's ``compute_grf`` under ``vmap``; returns body-frame GRFs
+    in ``cs.foot_forces_grf`` and the updated solver memory.
+
+    MPC profiles: terrain adaptation, the condensed QP, then
+    - fixed mode: ``mpc_qp_iters`` iterations; the flip rescue
+      (``mpc_rescue_iters``: a refactor at the clamped rho estimate where
+      the first pass failed) and the round-robin polish
+      (``mpc_polish_iters`` every ``mpc_polish_every`` ticks). Each is a
+      ``lax.cond`` on a per-scenario predicate in the JAX package, which
+      ``vmap`` turns into both branches and a select: so here too, with
+      no host read;
+    - adaptive mode: ``admm_solve`` to 1e-5 within ``mpc_qp_iters``, then
+      75 fixed iterations past the exit.
+    The stand-QP branch (``stance_leg_control_type == 0``) raises."""
+    if cfg.stance_leg_control_type == 0:
+        raise NotImplementedError(
+            "compute_grf's stand-QP branch is not ported: ROADMAP.md, "
+            "'The other batched routes'")
+    cs, mem = terrain_adaptation(cfg, cs, mem)
+    prob = mpc_problem(cfg, params, cs, mem, dt, with_a_mat=True)
+    scal = qpx.rescale_cost(prob.p_mat, prob.q_vec, scaling_for_contacts(
+        mem.mpc_scaling_table, cs.contacts))
+    settings = qpx.QPSettings(rho=_MPC_RHO0)
+
+    def fixed(iters, x0, y0, rho0):
+        return qpx.admm_solve_fixed(
+            prob.p_mat, prob.q_vec, prob.a_mat, prob.lb, prob.ub, iters,
+            settings, x0=x0, y0=y0, rho0=rho0, scaling=scal)
+
+    if cfg.mpc_solver_mode == "fixed":
+        sol = fixed(cfg.mpc_qp_iters, prob.warm_x, prob.warm_y, prob.rho0)
+        if cfg.mpc_rescue_iters > 0:
+            rho_r = torch.where(sol.converged, prob.rho0, torch.clamp(
+                sol.rho, 0.1 * _MPC_RHO0, 100.0 * _MPC_RHO0))
+            rescued = fixed(cfg.mpc_rescue_iters, sol.x, sol.y, rho_r)
+            sol = select_tree(sol.converged & ~prob.rescue_flag, sol,
+                              rescued)
+        if cfg.mpc_polish_iters > 0 and cfg.mpc_polish_every > 0:
+            due = (((mem.tick % cfg.mpc_polish_every) == 0) & sol.converged
+                   & ~prob.rescue_flag)
+            polished = fixed(cfg.mpc_polish_iters, sol.x, sol.y, prob.rho0)
+            sol = select_tree(due, polished, sol)
+    else:
+        sol = qpx.admm_solve(
+            prob.p_mat, prob.q_vec, prob.a_mat, prob.lb, prob.ub,
+            qpx.QPSettings(rho=_MPC_RHO0, eps_abs=1e-5, eps_rel=1e-5,
+                           max_iter=cfg.mpc_qp_iters,
+                           check_every=cfg.qp_check_every),
+            x0=prob.warm_x, y0=prob.warm_y, rho0=prob.rho0, scaling=scal)
+        sol = fixed(75, sol.x, sol.y, prob.rho0)
+    return mpc_apply_solution(cfg, cs, mem, sol)

@@ -6,6 +6,13 @@
 // pivot row, so that the rank-1 update scales the pivot row in place
 // (r - (diag - 1) r / diag = r / diag) and both versions round alike.
 //
+// With kSelectRow the same kernel replaces the retired
+// a1_qp_mpc_controller_tpu/ops/pallas_retired.py:213
+// batched_inverse_combined (body _gj_combined_kernel, :171, Gauss-Jordan
+// on [M | I]): its only arithmetic difference is the pivot row, written
+// as r * (1/d) by a select instead of r - (diag - 1) r / diag. K1's own
+// instantiation (kSelectRow false) is the code above, unchanged.
+//
 // Bound on an H100 SXM: per matrix 120 pivots x 2 rank-1 updates of
 // 120^2 ~ 6.9 MFLOP against 2 x 57.6 KB of device-memory traffic, so the
 // work is bound by operations (float32 outside the tensor cores,
@@ -29,6 +36,7 @@ namespace {
 
 constexpr int kThreads = 512;
 
+template <bool kSelectRow>
 __global__ void __launch_bounds__(kThreads)
 gj_inverse_kernel(const float* __restrict__ m_in, float* __restrict__ out,
                   int n) {
@@ -66,6 +74,13 @@ gj_inverse_kernel(const float* __restrict__ m_in, float* __restrict__ out,
       const float f = fac[i];
       float* rm = sm + i * n;
       float* ri = si + i * n;
+      if (kSelectRow && i == k) {
+        for (int j = lane; j < n; j += 32) {
+          rm[j] = rowm[j];
+          ri[j] = rowi[j];
+        }
+        continue;
+      }
       for (int j = lane; j < n; j += 32) {
         rm[j] = __fsub_rn(rm[j], __fmul_rn(f, rowm[j]));
         ri[j] = __fsub_rn(ri[j], __fmul_rn(f, rowi[j]));
@@ -85,17 +100,33 @@ extern "C" size_t gj_inverse_smem_bytes(int n) {
   return static_cast<size_t>(2 * n * n + 3 * n) * sizeof(float);
 }
 
-// m, out: (batch, n, n) contiguous float32 on the device. Returns the
-// CUDA error code of the launch (0 on success).
-extern "C" int gj_inverse_launch(const float* m, float* out, int batch,
-                                 int n, void* stream) {
+namespace {
+
+template <bool kSelectRow>
+int launch(const float* m, float* out, int batch, int n, void* stream) {
   const size_t smem = gj_inverse_smem_bytes(n);
   cudaError_t err = cudaFuncSetAttribute(
-      gj_inverse_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      gj_inverse_kernel<kSelectRow>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   if (batch == 0) return 0;
-  gj_inverse_kernel<<<batch, kThreads, smem,
-                      static_cast<cudaStream_t>(stream)>>>(m, out, n);
+  gj_inverse_kernel<kSelectRow><<<batch, kThreads, smem,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      m, out, n);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// m, out: (batch, n, n) contiguous float32 on the device. Returns the
+// CUDA error code of the launch (0 on success). K1:
+extern "C" int gj_inverse_launch(const float* m, float* out, int batch,
+                                 int n, void* stream) {
+  return launch<false>(m, out, batch, n, stream);
+}
+
+// K6c, the pivot row written by a select:
+extern "C" int gj_inverse_combined_launch(const float* m, float* out,
+                                          int batch, int n, void* stream) {
+  return launch<true>(m, out, batch, n, stream);
 }

@@ -33,7 +33,10 @@ _SOURCES = {"gj_inverse": "gj_inverse.cu",
             "chol_linv": "chol_linv.cu",
             "fused_admm_shared": "fused_admm_shared.cu",
             "fused_admm": "fused_admm.cu",
-            "inverse_t": "inverse_t.cu"}
+            "inverse_t": "inverse_t.cu",
+            "gj_inplace": "gj_inplace.cu",
+            "gj_rank": "gj_rank.cu",
+            "sweep_inverse": "sweep_inverse.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 MAX_SMEM_BYTES = 232448     # per-block dynamic shared memory on Hopper
@@ -43,15 +46,15 @@ CHOL_P_MAX = 128            # batched_chol_linv's largest panel: 3 p^2 floats
 
 launches = {"batched_inverse": 0, "batched_inverse_small": 0,
             "batched_chol_linv": 0, "fused_admm_shared": 0, "fused_admm": 0,
-            "batched_inverse_T": 0, "batched_inverse_sweep_T": 0}
+            "batched_inverse_T": 0, "batched_inverse_sweep_T": 0,
+            "batched_inverse_inplace": 0, "batched_inverse_combined": 0,
+            "batched_inverse_rank": 0, "batched_inverse_rank_masked": 0,
+            "batched_inverse_spd": 0}
 build_log: dict[str, str] = {}
 _fns: dict[str, ctypes._CFuncPtr] = {}
 
 _P = ctypes.c_void_p
 _ARGTYPES = {
-    "gj_inverse": [_P, _P, ctypes.c_int, ctypes.c_int, _P],
-    "gj_inverse_small": [_P, _P, ctypes.c_int, ctypes.c_int, _P],
-    "chol_linv": [_P, _P, ctypes.c_int, ctypes.c_int, _P],
     "fused_admm_shared": [_P] * 16 + [ctypes.c_int] * 4
     + [ctypes.c_float] * 3 + [_P],
     "fused_admm": [_P] * 12 + [ctypes.c_int] * 4
@@ -133,10 +136,12 @@ def _on_card(t: torch.Tensor) -> bool:
 
 # --- K1, K3 and K5: Gauss-Jordan inverse, panel Cholesky inverse ---------
 
-def _inverse(m: torch.Tensor, name: str, lib: str, plain, n_max: int):
-    """The launch discipline K1, K3 and K5 share: (B, n, n) with n <=
-    n_max on any device, the plain version on the CPU, else the ``lib``
-    kernel, counted in ``launches[name]``."""
+def _inverse(m: torch.Tensor, name: str, lib: str, plain, n_max: int,
+             symbol: str = "launch", extra: tuple = ()):
+    """The launch discipline K1, K3, K5 and K6b-K6f share: (B, n, n) with
+    n <= n_max on any device, the plain version on the CPU, else the
+    ``symbol`` kernel of ``lib`` (``extra`` int arguments after n),
+    counted in ``launches[name]``."""
     if m.ndim != 3 or m.shape[1] != m.shape[2]:
         raise ValueError(f"{name}: expected (B, n, n), got "
                          f"{tuple(m.shape)}")
@@ -147,10 +152,12 @@ def _inverse(m: torch.Tensor, name: str, lib: str, plain, n_max: int):
         return plain(m)
     _check("m", m, (b, n, n), m.device)
     out = torch.empty_like(m)
-    rc = _fn(lib)(m.data_ptr(), out.data_ptr(), b, n,
-                  torch.cuda.current_stream(m.device).cuda_stream)
+    fn = _fn(lib, symbol, [_P, _P] + [ctypes.c_int] * (2 + len(extra))
+             + [_P])
+    rc = fn(m.data_ptr(), out.data_ptr(), b, n, *extra,
+            torch.cuda.current_stream(m.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"{lib} launch failed: CUDA error {rc}")
+        raise RuntimeError(f"{lib}_{symbol} failed: CUDA error {rc}")
     launches[name] += 1
     return out
 
@@ -314,9 +321,12 @@ def fused_admm_shared(a0, a1, minv, mu, d, e, qs, ls, us, rho_vec, x0, y0,
 # --- K4: fused ADMM, per-scenario A -------------------------------------
 
 def fused_admm_plain(minv, a_s, qs, ls, us, rho_vec, x0, y0, z0, *,
-                     iters: int, sigma: float, alpha: float):
+                     iters: int, sigma: float, alpha: float,
+                     reciprocal: bool = True):
     """``iters`` scaled-space ADMM iterations with a per-scenario A_s;
-    the x-update reduces along minv's rows (minv @ rhs)."""
+    the x-update reduces along minv's rows (minv @ rhs). The z-update
+    multiplies y by 1/rho (the kernel's order) or, with ``reciprocal``
+    off, divides it by rho (the order of ``qp.admm_solve``)."""
     inv_rho = 1.0 / rho_vec
     x, y, z = x0, y0, z0
     for _ in range(iters):
@@ -326,7 +336,8 @@ def fused_admm_plain(minv, a_s, qs, ls, us, rho_vec, x0, y0, z0, *,
         x1 = alpha * xt + (1.0 - alpha) * x
         ax = torch.einsum("bmn,bn->bm", a_s, xt)
         zp = alpha * ax + (1.0 - alpha) * z
-        z1 = torch.clamp(zp + y * inv_rho, ls, us)
+        z1 = torch.clamp(zp + (y * inv_rho if reciprocal else y / rho_vec),
+                         ls, us)
         y = y + rho_vec * (zp - z1)
         x, z = x1, z1
     return x, y, z

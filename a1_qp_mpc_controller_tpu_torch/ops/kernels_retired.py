@@ -1,5 +1,6 @@
-"""The retired inverse variants (counterpart of ``ops/pallas_retired.py``)
-that the 'schur', 'sweep_t' and 'gj_t' routes and the tests reach.
+"""The retired inverse variants (counterpart of ``ops/pallas_retired.py``):
+the 'schur', 'sweep_t' and 'gj_t' routes' inverses and the batch-leading
+variants that the component profile (``runtime/components.py``) times.
 
 - K6a ``spd_block_inverse``: recursive Schur-complement inversion,
   products as ``torch.matmul`` and K3 (``kernels.batched_inverse_small``)
@@ -13,16 +14,30 @@ that the 'schur', 'sweep_t' and 'gj_t' routes and the tests reach.
   operator in the batch-last layout. The four TPU kernels differ only in
   how they chunk and alias VMEM, so they share one CUDA kernel
   (``csrc/inverse_t.cu``) and one plain version.
+- K6b ``batched_inverse_inplace``: Gauss-Jordan in one working array
+  (``csrc/gj_inplace.cu``).
+- K6c ``batched_inverse_combined``: Gauss-Jordan on [M | I], the pivot row
+  written by a select (K1's source, ``csrc/gj_inverse.cu``, with a
+  compile-time flag; the arithmetic of K6g in the batch-leading layout).
+- K6d ``batched_inverse_rank`` and K6e ``batched_inverse_rank_masked``:
+  rank-r panel Gauss-Jordan (``csrc/gj_rank.cu``, r = 2, 4 or 8). They
+  keep the TPU versions' identity padding of n to a multiple of r: those
+  pivots decide the panels.
+- K6f ``batched_inverse_spd``: the symmetric sweep, batch-leading
+  (``csrc/sweep_inverse.cu``); the arithmetic of K6h with ``sym_col``.
+  The TPU version's identity pivots up to 128 lanes leave the n x n block
+  as it is, so neither version runs them.
 
 The TPU-only knobs of the JAX entry points (``sblock``, ``chunk``,
 ``alias``, ``block``, ``interpret``) are not carried across, nor is their
-padding (n to a multiple of 8, the batch to ``sblock``: identity and
-zero tails that leave the answer as it is). The transposes are kept: the
-entry points take and return (B, n, n), and work batch-last inside, the
-plain versions in the JAX kernels' (n, n, B) layout and the CUDA kernels
-in that layout cut into tiles of 8 scenarios, (ceil(B / 8), n, n, 8). On
-a CPU tensor each entry point runs its plain version; on a CUDA tensor
-it launches its kernel or raises, counted in ``kernels.launches``.
+padding (n to a multiple of 8 or to 128 lanes, the batch to ``sblock`` or
+``block``: identity and zero tails that leave the answer as it is). The
+batch-last entry points keep their transposes: they take and return
+(B, n, n), and work batch-last inside, the plain versions in the JAX
+kernels' (n, n, B) layout and the CUDA kernels in that layout cut into
+tiles of 8 scenarios, (ceil(B / 8), n, n, 8). On a CPU tensor each entry
+point runs its plain version; on a CUDA tensor it launches its kernel or
+raises, counted in ``kernels.launches``.
 """
 
 from __future__ import annotations
@@ -212,3 +227,192 @@ def batched_inverse_sweep_T_masked(m: torch.Tensor) -> torch.Tensor:
 def batched_inverse_sweep_T_masked2(m: torch.Tensor) -> torch.Tensor:
     """K6k, the two-pass TPU variant: the same sweep."""
     return batched_inverse_sweep_T(m)
+
+
+# --- K6b-K6f: batch-leading Gauss-Jordan and sweep variants ---------------
+
+INPLACE_N_MAX = 240         # K6b / K6f: one array, n^2 + 2n floats
+RANKS = (2, 4, 8)
+
+
+def batched_inverse_inplace_plain(m: torch.Tensor) -> torch.Tensor:
+    """K6b's arithmetic (``_gj_inplace_kernel``): one working array w;
+    pivot k with c = column k and r = row k * (1/d): w - c r off row and
+    column k, r on row k, -c * (1/d) on column k, 1/d at (k, k)."""
+    b, n, _ = m.shape
+    w = m.clone()
+    for k in range(n):
+        c = w[:, :, k].clone()                              # (B, n)
+        inv_d = 1.0 / w[:, k, k:k + 1]                      # (B, 1)
+        rd = w[:, k, :] * inv_d
+        rd[:, k] = inv_d[:, 0]
+        colfix = -c * inv_d
+        colfix[:, k] = inv_d[:, 0]
+        c[:, k] = 0.0
+        w = w - c[:, :, None] * rd[:, None, :]
+        w[:, k, :] = rd
+        w[:, :, k] = colfix
+    return w
+
+
+def batched_inverse_inplace(m: torch.Tensor) -> torch.Tensor:
+    """K6b: invert a batch of SPD matrices (B, n, n) with the one-array
+    Gauss-Jordan kernel (csrc/gj_inplace.cu), n <= 240; plain version on
+    the CPU."""
+    return kernels._inverse(m, "batched_inverse_inplace", "gj_inplace",
+                            batched_inverse_inplace_plain, INPLACE_N_MAX)
+
+
+def batched_inverse_combined_plain(m: torch.Tensor) -> torch.Tensor:
+    """K6c's arithmetic (``_gj_combined_kernel`` on [M | I]): pivot k
+    zeroes its own entry of the factor column f, every row becomes
+    x - f[i] * (row_k * (1/d)), and row k becomes row_k * (1/d). That is
+    K6g's arithmetic, so this is K6g's plain version in the batch-leading
+    layout."""
+    return _to_batch_leading(gj_inverse_T_plain(m.permute(1, 2, 0)))
+
+
+def batched_inverse_combined(m: torch.Tensor) -> torch.Tensor:
+    """K6c: invert a batch of SPD matrices (B, n, n) with K1's kernel
+    built to write the pivot row by a select (csrc/gj_inverse.cu),
+    n <= 169; plain version on the CPU."""
+    return kernels._inverse(m, "batched_inverse_combined", "gj_inverse",
+                            batched_inverse_combined_plain,
+                            kernels.GJ_N_MAX, symbol="combined_launch")
+
+
+def _rank_padded(m: torch.Tensor, rank: int) -> torch.Tensor:
+    """m with an identity tail up to a multiple of ``rank`` pivots."""
+    if rank not in RANKS:
+        raise ValueError(f"rank {rank} not in {RANKS}")
+    n = m.shape[1]
+    n_steps = -(-n // rank) * rank
+    return pad_identity(m, n_steps) if n_steps != n else m
+
+
+def _rank_plain(m: torch.Tensor, rank: int) -> torch.Tensor:
+    """K6d's arithmetic (``_gj_rank_r_kernel``) on n % rank == 0."""
+    b, n, _ = m.shape
+    mm = m.clone()
+    inv = torch.eye(n, dtype=m.dtype, device=m.device).repeat(b, 1, 1)
+    for k0 in range(0, n, rank):
+        panel = slice(k0, k0 + rank)
+        f = mm[:, :, panel].clone()                         # (B, n, r)
+        f[:, panel] = 0.0
+        pm = mm[:, panel, :].clone()                        # (B, r, n)
+        pi = inv[:, panel, :].clone()
+        for j in range(rank):
+            inv_p = 1.0 / pm[:, j:j + 1, k0 + j:k0 + j + 1]
+            rm = pm[:, j:j + 1, :] * inv_p
+            ri = pi[:, j:j + 1, :] * inv_p
+            fac = pm[:, :, k0 + j:k0 + j + 1].clone()
+            fac[:, j] = 0.0
+            pm = pm - fac * rm
+            pi = pi - fac * ri
+            pm[:, j:j + 1] = rm
+            pi[:, j:j + 1] = ri
+        for j in range(rank):
+            mm = mm - f[:, :, j:j + 1] * pm[:, j:j + 1, :]
+            inv = inv - f[:, :, j:j + 1] * pi[:, j:j + 1, :]
+        mm[:, panel] = pm
+        inv[:, panel] = pi
+    return inv
+
+
+def _rank_masked_plain(m: torch.Tensor, rank: int) -> torch.Tensor:
+    """K6e's arithmetic (``_gj_rank_masked_kernel``) on n % rank == 0."""
+    b, n, _ = m.shape
+    mm = m.clone()
+    inv = torch.eye(n, dtype=m.dtype, device=m.device).repeat(b, 1, 1)
+    for k0 in range(0, n, rank):
+        rows_m, rows_i, cols = [], [], []
+        for j in range(rank):
+            kj = k0 + j
+            rm, ri = mm[:, kj, :], inv[:, kj, :]            # (B, n) raw
+            cj = mm[:, :, kj]
+            for l in range(j):
+                e = rm[:, k0 + l:k0 + l + 1]
+                rm = rm - e * rows_m[l]
+                ri = ri - e * rows_i[l]
+            d = rm[:, kj:kj + 1]
+            inv_d = 1.0 / d
+            rm = rm * inv_d
+            ri = ri * inv_d
+            for l in range(j):
+                cj = cj - cols[l] * rows_m[l][:, kj:kj + 1]
+            cj = cj.clone()
+            cj[:, kj] = d[:, 0] - 1.0
+            rows_m.append(rm)
+            rows_i.append(ri)
+            cols.append(cj)
+        for j in range(rank):
+            mm = mm - cols[j][:, :, None] * rows_m[j][:, None, :]
+            inv = inv - cols[j][:, :, None] * rows_i[j][:, None, :]
+    return inv
+
+
+def batched_inverse_rank_plain(m: torch.Tensor, rank: int = 2
+                               ) -> torch.Tensor:
+    """K6d's plain version on (B, n, n), n padded to a multiple of
+    ``rank`` and cut back."""
+    n = m.shape[1]
+    return _rank_plain(_rank_padded(m, rank), rank)[:, :n, :n]
+
+
+def batched_inverse_rank_masked_plain(m: torch.Tensor, rank: int = 8
+                                      ) -> torch.Tensor:
+    """K6e's plain version on (B, n, n), n padded to a multiple of
+    ``rank`` and cut back."""
+    n = m.shape[1]
+    return _rank_masked_plain(_rank_padded(m, rank), rank)[:, :n, :n]
+
+
+def _rank_n_max(rank: int) -> int:
+    """The largest multiple of ``rank`` whose arrays (2n^2 + 3 rank n
+    floats) fit in a block's shared memory."""
+    n = rank
+    while (2 * (n + rank) ** 2 + 3 * rank * (n + rank)) * 4 \
+            <= kernels.MAX_SMEM_BYTES:
+        n += rank
+    return n
+
+
+def _rank_inverse(m, rank, name, symbol, plain):
+    n = m.shape[1]
+    mm = _rank_padded(m, rank).contiguous()
+    out = kernels._inverse(mm, name, "gj_rank", lambda x: plain(x, rank),
+                           _rank_n_max(rank), symbol=symbol, extra=(rank,))
+    return out if mm is m else out[:, :n, :n].contiguous()
+
+
+def batched_inverse_rank(m: torch.Tensor, rank: int = 2) -> torch.Tensor:
+    """K6d: invert a batch of SPD matrices (B, n, n) with the rank-r panel
+    Gauss-Jordan kernel (csrc/gj_rank.cu), r in (2, 4, 8); plain version
+    on the CPU."""
+    return _rank_inverse(m, rank, "batched_inverse_rank", "launch",
+                         _rank_plain)
+
+
+def batched_inverse_rank_masked(m: torch.Tensor, rank: int = 8
+                                ) -> torch.Tensor:
+    """K6e: invert a batch of SPD matrices (B, n, n) with the corrected
+    rank-r panel Gauss-Jordan kernel (csrc/gj_rank.cu), r in (2, 4, 8);
+    plain version on the CPU."""
+    return _rank_inverse(m, rank, "batched_inverse_rank_masked",
+                         "masked_launch", _rank_masked_plain)
+
+
+def batched_inverse_spd_plain(m: torch.Tensor) -> torch.Tensor:
+    """K6f's arithmetic (``_sweep_inverse_kernel``): the sweep with the
+    pivot row read as the column, negated at the end; that is K6h's plain
+    version with ``sym_col``, in the batch-leading layout."""
+    return _to_batch_leading(sweep_inverse_T_plain(m.permute(1, 2, 0),
+                                                   sym_col=True))
+
+
+def batched_inverse_spd(m: torch.Tensor) -> torch.Tensor:
+    """K6f: invert a batch of SPD matrices (B, n, n) with the
+    batch-leading sweep kernel (csrc/sweep_inverse.cu), n <= 240; plain
+    version on the CPU."""
+    return kernels._inverse(m, "batched_inverse_spd", "sweep_inverse",
+                            batched_inverse_spd_plain, INPLACE_N_MAX)

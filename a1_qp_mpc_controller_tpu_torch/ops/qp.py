@@ -1,9 +1,11 @@
-"""OSQP-semantics ADMM pieces of the batched MPC solve (counterpart of
-the matching subset of ``ops/qp.py``): settings, solution and scaling
-types, modified Ruiz equilibration, per-instance cost rescaling, the
-per-constraint stepsize vector, the scaled KKT assembly (dense and
-block-diagonal), the contact-pattern-reduced KKT inverse, and the host
-side of the two fused ADMM kernels.
+"""OSQP-semantics ADMM pieces of the MPC solve (counterpart of the
+matching subset of ``ops/qp.py``): settings, solution and scaling types,
+modified Ruiz equilibration, per-instance cost rescaling, the
+per-constraint stepsize vector, the scaled KKT assembly (dense, shared
+basis and block-diagonal), the contact-pattern-reduced KKT inverse, the
+host side of the two fused ADMM kernels, and the plain-PyTorch solves
+``admm_solve`` (adaptive) and ``admm_solve_fixed`` that the JAX package
+runs under ``vmap``.
 
 Solves  minimize 1/2 x'Px + q'x  s.t.  l <= Ax <= u, every operand
 batched over scenarios: with A = A0 + mu A1 (the friction-cone
@@ -18,10 +20,12 @@ import dataclasses
 import torch
 
 from a1_qp_mpc_controller_tpu_torch.ops.kernels import (
-    batched_inverse, batched_inverse_small, fused_admm, fused_admm_shared,
+    batched_inverse, batched_inverse_small, fused_admm, fused_admm_plain,
+    fused_admm_shared,
 )
+from a1_qp_mpc_controller_tpu_torch.ops.linalg import gj_inverse_unrolled
 from a1_qp_mpc_controller_tpu_torch.tensors import (
-    host_bool, tensorclass, top_k_indices,
+    host_bool, host_flag_and_indices, tensorclass, top_k_indices, where_b,
 )
 from a1_qp_mpc_controller_tpu_torch.utils import mathx
 
@@ -31,6 +35,7 @@ RHO_MIN = 1e-6
 RHO_MAX = 1e6
 RHO_EQ_SCALE = 1e3
 RHO_TOL = 1e-4
+ADAPTIVE_RHO_TOL = 5.0  # only change rho when it moves by >= 5x (OSQP)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,6 +166,18 @@ def _kkt_matrix(P: torch.Tensor, A: torch.Tensor, rho_vec: torch.Tensor,
     return P + sigma * eye + (A.transpose(-1, -2) * rho_vec[:, None, :]) @ A
 
 
+def _kkt_inverse(P: torch.Tensor, A: torch.Tensor, rho_vec: torch.Tensor,
+                 sigma: float) -> torch.Tensor:
+    """inv(P + sigma I + A' diag(rho) A), batched: the unrolled
+    pivot-free Gauss-Jordan for n <= 16 (the stand QP), else
+    ``torch.linalg.inv``, as the JAX package (XLA-level code there, not
+    a kernel)."""
+    m_mat = _kkt_matrix(P, A, rho_vec, sigma)
+    if P.shape[-1] <= 16:
+        return gj_inverse_unrolled(m_mat)
+    return torch.linalg.inv(m_mat)
+
+
 def scaled_kkt_matrix(P, q, A, l, u, settings: QPSettings,
                       rho0: torch.Tensor, scaling: Scaling) -> torch.Tensor:
     """The scaled KKT matrix the solve factorizes, for callers that
@@ -169,6 +186,24 @@ def scaled_kkt_matrix(P, q, A, l, u, settings: QPSettings,
     sp = apply_scaling(P, q, A, l, u, scaling)
     rho_vec = _rho_vec(sp.l, sp.u, rho0, settings.rho_eq_scale)
     return _kkt_matrix(sp.P, sp.A, rho_vec, settings.sigma)
+
+
+def scaled_kkt_matrix_shared(P: torch.Tensor, a0: torch.Tensor,
+                             a1: torch.Tensor, mu: torch.Tensor,
+                             l: torch.Tensor, u: torch.Tensor,
+                             settings: QPSettings, rho0: torch.Tensor,
+                             scaling: Scaling) -> torch.Tensor:
+    """Scaled KKT matrix for A_s = A0 + mu_s A1 as one batched product:
+    Ps + sigma I + G' diag(rho e^2) G with G = (A0 + mu A1) diag(d)."""
+    d, e, c = scaling.d, scaling.e, scaling.c
+    n = P.shape[-1]
+    Ps = (c[:, None, None] * P) * (d[:, :, None] * d[:, None, :])
+    rho_vec = _rho_vec(e * l, e * u, rho0, settings.rho_eq_scale)
+    g = (a0[None] + mu[:, None, None] * a1[None]) * d[:, None, :]
+    gw = g * (rho_vec * e * e)[:, :, None]
+    return (Ps + settings.sigma * torch.eye(n, dtype=P.dtype,
+                                            device=P.device)
+            + torch.einsum("bmi,bmj->bij", g, gw))
 
 
 def live_first(live: torch.Tensor, k: int) -> torch.Tensor:
@@ -286,12 +321,36 @@ def _inf(v: torch.Tensor) -> torch.Tensor:
     return torch.amax(torch.abs(v), dim=1)
 
 
+def _bmv(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return torch.einsum("bmn,bn->bm", a, x)      # (B,m,n) x (B,n)
+
+
+def _bmtv(a: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    return torch.einsum("bmn,bm->bn", a, y)      # (B,m,n)' x (B,m)
+
+
+def _exit_test(P, q, ax, aty, xu, zu, s: QPSettings):
+    """Unscaled residuals and OSQP's exit test at an unscaled iterate,
+    from its products ``ax`` = A xu and ``aty`` = A' yu: (B,) prim_res,
+    dual_res and converged."""
+    px = torch.einsum("bij,bj->bi", P, xu)
+    rp = _inf(ax - zu)
+    rd = _inf(px + q + aty)
+    eps_prim = s.eps_abs + s.eps_rel * torch.maximum(_inf(ax), _inf(zu))
+    eps_dual = s.eps_abs + s.eps_rel * torch.maximum(
+        torch.maximum(_inf(px), _inf(aty)), _inf(q))
+    return rp, rd, (rp <= eps_prim) & (rd <= eps_dual)
+
+
 def _rho_estimate(Ps, qs, As, x, y, z, rho):
     """OSQP's compute_rho_estimate on scaled iterates (no 5x threshold),
     batched: (B,) from per-scenario ``rho``."""
-    ax = torch.einsum("bmn,bn->bm", As, x)
-    px = torch.einsum("bij,bj->bi", Ps, x)
-    aty = torch.einsum("bmn,bm->bn", As, y)
+    return _rho_from_products(_bmv(As, x), torch.einsum("bij,bj->bi", Ps, x),
+                              _bmtv(As, y), z, qs, rho)
+
+
+def _rho_from_products(ax, px, aty, z, qs, rho):
+    """:func:`_rho_estimate` from the scaled products A x, P x, A' y."""
     div_tol = 1e-12
     rp_rel = _inf(ax - z) / torch.clamp(
         torch.maximum(_inf(ax), _inf(z)), min=div_tol)
@@ -337,20 +396,12 @@ def admm_solve_fixed_batched(P: torch.Tensor, q: torch.Tensor,
     xu = sp.d * x
     yu = y * sp.e / sp.c[:, None]
     zu = z / sp.e
-    ax = torch.einsum("bmn,bn->bm", A, xu)
-    px = torch.einsum("bij,bj->bi", P, xu)
-    aty = torch.einsum("bmn,bm->bn", A, yu)
-    rp = _inf(ax - zu)
-    rd = _inf(px + q + aty)
-    eps_prim = s.eps_abs + s.eps_rel * torch.maximum(_inf(ax), _inf(zu))
-    eps_dual = s.eps_abs + s.eps_rel * torch.maximum(
-        torch.maximum(_inf(px), _inf(aty)), _inf(q))
+    rp, rd, conv = _exit_test(P, q, _bmv(A, xu), _bmtv(A, yu), xu, zu, s)
     return QPSolution(
         x=xu, y=yu, z=zu,
         iters=torch.full((P.shape[0],), iters, dtype=torch.int32,
                          device=P.device),
-        prim_res=rp, dual_res=rd,
-        converged=(rp <= eps_prim) & (rd <= eps_dual),
+        prim_res=rp, dual_res=rd, converged=conv,
         rho=_rho_estimate(sp.P, sp.q, sp.A, x, y, z, rho0))
 
 
@@ -379,30 +430,122 @@ def admm_solve_fixed_batched_shared(
     xu = d * x
     yu = y * e / c[:, None]
     zu = z / e
-    ax = amul(xu)
-    px = torch.einsum("bij,bj->bi", P, xu)
-    aty = atmul(yu)
-    rp = _inf(ax - zu)
-    rd = _inf(px + q + aty)
-    eps_prim = s.eps_abs + s.eps_rel * torch.maximum(_inf(ax), _inf(zu))
-    eps_dual = s.eps_abs + s.eps_rel * torch.maximum(
-        torch.maximum(_inf(px), _inf(aty)), _inf(q))
-
-    ax_s = e * amul(d * x)
-    px_s = torch.einsum("bij,bj->bi", Ps, x)
-    aty_s = d * atmul(e * y)
-    div_tol = 1e-12
-    rp_rel = _inf(ax_s - z) / torch.clamp(
-        torch.maximum(_inf(ax_s), _inf(z)), min=div_tol)
-    rd_rel = _inf(px_s + qs + aty_s) / torch.clamp(torch.maximum(
-        torch.maximum(_inf(px_s), _inf(aty_s)), _inf(qs)), min=div_tol)
-    rho_est = torch.clamp(
-        rho0 * torch.sqrt(rp_rel / torch.clamp(rd_rel, min=div_tol)),
-        RHO_MIN, RHO_MAX)
+    rp, rd, conv = _exit_test(P, q, amul(xu), atmul(yu), xu, zu, s)
+    rho_est = _rho_from_products(
+        e * amul(d * x), torch.einsum("bij,bj->bi", Ps, x),
+        d * atmul(e * y), z, qs, rho0)
 
     return QPSolution(
         x=xu, y=yu, z=zu,
         iters=torch.full((P.shape[0],), iters, dtype=torch.int32,
                          device=P.device),
-        prim_res=rp, dual_res=rd,
-        converged=(rp <= eps_prim) & (rd <= eps_dual), rho=rho_est)
+        prim_res=rp, dual_res=rd, converged=conv, rho=rho_est)
+
+
+def admm_solve(P: torch.Tensor, q: torch.Tensor, A: torch.Tensor,
+               l: torch.Tensor, u: torch.Tensor,
+               settings: QPSettings = QPSettings(),
+               x0: torch.Tensor | None = None,
+               y0: torch.Tensor | None = None,
+               rho0: torch.Tensor | None = None,
+               scaling: Scaling | None = None,
+               kkt_inv: torch.Tensor | None = None) -> QPSolution:
+    """The adaptive ADMM solve over a batch, each scenario as the JAX
+    package's ``admm_solve`` does it under ``vmap``: blocks of
+    ``check_every`` iterations, after each the unscaled residual test
+    and (``adaptive_rho``) OSQP's rho estimate with a refactor where it
+    moves 5x, until the scenario converges or reaches ``max_iter``. A
+    scenario that has stopped keeps its state while the others run on;
+    the batch stops when every scenario has. The exit test is read on
+    the host after each block but the last, in the same copy as the
+    indices of the scenarios whose rho moved (one read a block,
+    ``tensors.host_syncs``), and a refactor inverts only those.
+    ``x0``/``y0``/``rho0`` warm-start, ``scaling`` replaces the Ruiz
+    sweep, ``kkt_inv`` (needs ``adaptive_rho=False``) replaces the
+    factorization."""
+    s = settings
+    b, n = q.shape
+    m = l.shape[1]
+    if scaling is None:
+        Ps, qs, As, ls, us, scaling = ruiz_equilibrate(P, q, A, l, u,
+                                                       s.scaling_iters)
+    else:
+        sp = apply_scaling(P, q, A, l, u, scaling)
+        Ps, qs, As, ls, us = sp.P, sp.q, sp.A, sp.l, sp.u
+    d, e, c = scaling.d, scaling.e, scaling.c
+    x = q.new_zeros((b, n)) if x0 is None else x0 / d
+    y = q.new_zeros((b, m)) if y0 is None else c[:, None] * y0 / e
+    z = torch.clamp(_bmv(As, x), ls, us)
+    rho = q.new_full((b,), s.rho) if rho0 is None else rho0
+    rho_vec = _rho_vec(ls, us, rho, s.rho_eq_scale)
+    if kkt_inv is None:
+        minv = _kkt_inverse(Ps, As, rho_vec, s.sigma)
+    elif s.adaptive_rho:
+        raise ValueError("kkt_inv requires adaptive_rho=False (a rho "
+                         "change would refactorize)")
+    else:
+        minv = kkt_inv
+
+    def residuals(x, y, z):
+        xu, yu, zu = d * x, y * e / c[:, None], z / e
+        return _exit_test(P, q, _bmv(A, xu), _bmtv(A, yu), xu, zu, s)
+
+    it = torch.zeros((b,), dtype=torch.int32, device=q.device)
+    done = torch.zeros((b,), dtype=torch.bool, device=q.device)
+    rp = rd = q.new_full((b,), float("inf"))
+    n_blocks = -(-s.max_iter // s.check_every)
+    for blk in range(n_blocks):
+        # every scenario that has not converged has run blk blocks, fewer
+        # than max_iter iterations: the first block runs them all
+        active = ~done
+        x1, y1, z1 = fused_admm_plain(minv, As, qs, ls, us, rho_vec, x, y, z,
+                                      iters=s.check_every, sigma=s.sigma,
+                                      alpha=s.alpha, reciprocal=False)
+        rp1, rd1, done1 = residuals(x1, y1, z1)
+        if s.adaptive_rho:
+            rho_new = _rho_estimate(Ps, qs, As, x1, y1, z1, rho)
+            change = ((rho_new > ADAPTIVE_RHO_TOL * rho)
+                      | (rho_new < rho / ADAPTIVE_RHO_TOL))
+            update = change & ~done1 & active
+            rho = torch.where(update, rho_new, rho)
+            rho_vec = where_b(update, _rho_vec(ls, us, rho, s.rho_eq_scale),
+                              rho_vec)
+        x, y, z = (where_b(active, new, old)
+                   for new, old in ((x1, x), (y1, y), (z1, z)))
+        it = torch.where(active, it + s.check_every, it)
+        rp = torch.where(active, rp1, rp)
+        rd = torch.where(active, rd1, rd)
+        done = torch.where(active, done1, done)
+        if blk + 1 == n_blocks:         # the last block's inverse is unused
+            break
+        if s.adaptive_rho:  # one read: the exit test and whom to refactor
+            more, idx = host_flag_and_indices(torch.any(~done), update)
+            if more and idx.numel():    # minv is this solve's own here
+                minv[idx] = _kkt_inverse(Ps[idx], As[idx], rho_vec[idx],
+                                         s.sigma)
+        else:
+            more = host_bool(torch.any(~done))
+        if not more:
+            break
+
+    return QPSolution(
+        x=d * x, y=y * e / c[:, None], z=z / e, iters=it, prim_res=rp,
+        dual_res=rd, converged=done,
+        rho=_rho_estimate(Ps, qs, As, x, y, z, rho))
+
+
+def admm_solve_fixed(P: torch.Tensor, q: torch.Tensor, A: torch.Tensor,
+                     l: torch.Tensor, u: torch.Tensor, iters: int,
+                     settings: QPSettings = QPSettings(),
+                     x0: torch.Tensor | None = None,
+                     y0: torch.Tensor | None = None,
+                     rho0: torch.Tensor | None = None,
+                     scaling: Scaling | None = None,
+                     kkt_inv: torch.Tensor | None = None) -> QPSolution:
+    """Fixed-iteration variant: :func:`admm_solve` with ``max_iter =
+    check_every = iters`` and no adaptation, so every scenario runs
+    ``iters`` iterations and the host reads nothing. The returned ``rho``
+    is the post-solve estimate."""
+    s = dataclasses.replace(settings, max_iter=iters, check_every=iters,
+                            adaptive_rho=False)
+    return admm_solve(P, q, A, l, u, s, x0, y0, rho0, scaling, kkt_inv)

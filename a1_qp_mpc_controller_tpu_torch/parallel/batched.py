@@ -26,13 +26,16 @@ Routes, as ``batched_control_tick`` selects them:
     full-size solve with the same rescue and the round-robin polish;
 - ``admm_backend='pallas'`` (legacy): a materialized per-scenario A, the
   scaled KKT inverted by K1 (``use_pallas``) or ``torch.linalg.inv``,
-  the ADMM in K4; no rescue.
+  the ADMM in K4; no rescue;
+- ``admm_backend='xla'``, the default as in the JAX package: the same
+  inverse, then ``ops/qp.admm_solve_fixed`` with it, the batched plain
+  PyTorch ADMM (the JAX package's vmapped XLA solve); no rescue.
 
 Where the JAX package branches on device with ``lax.cond``, this module
 branches in Python on a device scalar (``tensors.host_bool``): each such
 branch is one host sync, counted in ``tensors.host_syncs``. Reads per
 tick with the rescue pool on and the polish off: 'gj', 'chol', 'schur',
-'sweep_t', 'gj_t' and 'pallas' 0, 'reduced' 1 (the overflow test),
+'sweep_t', 'gj_t', 'pallas' and 'xla' 0, 'reduced' 1 (the overflow test),
 'amortized' 4, 'reduced_admm' at the full size 1 (the straggler round),
 on the reduced tier 3 (overflow, one straggler round per tier) or 2 on a
 tick that overflows to the full size.
@@ -503,18 +506,24 @@ def _reduced_shared_solve(cfg: A1Config, prob, scal, mu, contacts,
     return reduced_path()
 
 
-def _legacy_solve(cfg: A1Config, prob, scal, settings, *,
-                  use_pallas: bool):
-    """Legacy route: per-scenario scaled KKT with the materialized A,
-    inverted by K1 (``use_pallas``) or ``torch.linalg.inv``, and the
-    fused ADMM with per-scenario A (K4). No rescue."""
+def _dense_solve(cfg: A1Config, prob, scal, settings, *, use_pallas: bool,
+                 admm_backend: str):
+    """The routes with the materialized A: per-scenario scaled KKT,
+    inverted by K1 (``use_pallas``) or ``torch.linalg.inv``, then the
+    fused ADMM with per-scenario A (K4, 'pallas') or the batched
+    ``admm_solve_fixed`` with that inverse ('xla'). No rescue."""
     m_b = qpx.scaled_kkt_matrix(prob.p_mat, prob.q_vec, prob.a_mat,
                                 prob.lb, prob.ub, settings, prob.rho0, scal)
     minv = batched_inverse(m_b) if use_pallas else torch.linalg.inv(m_b)
-    return qpx.admm_solve_fixed_batched(
+    if admm_backend == "pallas":     # K4 takes a row-major inverse
+        return qpx.admm_solve_fixed_batched(
+            prob.p_mat, prob.q_vec, prob.a_mat, prob.lb, prob.ub,
+            cfg.mpc_qp_iters, settings, prob.warm_x, prob.warm_y,
+            prob.rho0, scal, minv.contiguous())
+    return qpx.admm_solve_fixed(
         prob.p_mat, prob.q_vec, prob.a_mat, prob.lb, prob.ub,
-        cfg.mpc_qp_iters, settings, prob.warm_x, prob.warm_y, prob.rho0,
-        scal, minv)
+        cfg.mpc_qp_iters, settings, x0=prob.warm_x, y0=prob.warm_y,
+        rho0=prob.rho0, scaling=scal, kkt_inv=minv)
 
 
 _UNPORTED = "is not ported: ROADMAP.md, 'The other batched routes'"
@@ -531,7 +540,7 @@ _KKT_INVERSES = {
 def batched_control_tick(cfg: A1Config, params_b: RobotParams, cs_b, mem_b,
                          sensors_b, joy: JoyCmd, dt: torch.Tensor, *,
                          use_pallas: bool = False,
-                         admm_backend: str = "pallas_shared",
+                         admm_backend: str = "xla",
                          kkt_backend: str = "gj",
                          kkt_reduced_nr: int = 64,
                          kkt_big_capacity: int = 256,
@@ -544,11 +553,10 @@ def batched_control_tick(cfg: A1Config, params_b: RobotParams, cs_b, mem_b,
     """One batched MPC tick with the KKT factorization and the whole ADMM
     loop hoisted out of the per-scenario code (routes: module
     docstring). Returns (cs, mem, torques) [+ KktCarry on 'amortized']
-    [+ stats]; unlike the JAX package, the legacy route returns stats
-    too when asked."""
-    if admm_backend not in ("pallas_shared", "pallas"):
-        raise NotImplementedError(f"admm_backend={admm_backend!r} "
-                                  + _UNPORTED)
+    [+ stats]; unlike the JAX package, the 'pallas' and 'xla' routes
+    return stats too when asked."""
+    if admm_backend not in ("pallas_shared", "pallas", "xla"):
+        raise ValueError(f"unknown admm_backend={admm_backend!r}")
     if admm_backend == "pallas_shared" and kkt_backend not in (
             "amortized", "reduced", "reduced_admm", *_KKT_INVERSES):
         raise NotImplementedError(f"kkt_backend={kkt_backend!r} "
@@ -566,8 +574,9 @@ def batched_control_tick(cfg: A1Config, params_b: RobotParams, cs_b, mem_b,
     rescue = dict(rescue_capacity=rescue_capacity, rescue_iters=rescue_iters)
 
     extras = ()
-    if admm_backend == "pallas":
-        sol = _legacy_solve(cfg, prob, scal, settings, use_pallas=use_pallas)
+    if admm_backend != "pallas_shared":
+        sol = _dense_solve(cfg, prob, scal, settings, use_pallas=use_pallas,
+                           admm_backend=admm_backend)
     elif kkt_backend == "amortized":
         assert kkt_carry is not None, \
             "kkt_backend='amortized' needs a threaded kkt_carry " \

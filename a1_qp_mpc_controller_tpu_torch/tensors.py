@@ -85,6 +85,19 @@ def host_bool(flag: torch.Tensor) -> bool:
     return bool(flag)
 
 
+def host_flag_and_indices(flag: torch.Tensor, mask: torch.Tensor
+                          ) -> tuple[bool, torch.Tensor]:
+    """Read a device boolean and the indices of a device boolean
+    vector's True entries in one copy to the host: one host sync,
+    counted in ``host_syncs``. The indices go back to ``mask``'s
+    device."""
+    global host_syncs
+    host_syncs += 1
+    both = torch.cat([flag.reshape(1), mask]).cpu()
+    return (bool(both[0]),
+            torch.nonzero(both[1:]).squeeze(1).to(mask.device))
+
+
 def top_k_indices(score: torch.Tensor, k: int) -> torch.Tensor:
     """Indices of the ``k`` largest scores with ties to the lower index,
     the order ``jax.lax.top_k`` gives (``torch.topk`` promises none).

@@ -7,7 +7,7 @@ NVIDIA card and check it.
 Phases, in order:
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: the six CUDA sources from ``a1_qp_mpc_controller_tpu_torch/csrc``
+2. build: the nine CUDA sources from ``a1_qp_mpc_controller_tpu_torch/csrc``
    with nvcc for ``sm_90a`` (one nvcc process each, all at once; ptxas
    registers and spills logged), and K3's occupancy by CUDA's calculator;
 3. the kernels against their plain PyTorch versions on the operands of a
@@ -36,22 +36,38 @@ Phases, in order:
    - K6a (Schur recursion, K3 at the base) against itself with K3's plain
      version at the base: the same NaN pattern, the finite entries within
      1e-5 of their scale; its finite share and ||MX - I||_max reported;
+   - K6b-K6f (one-array, [M | I], rank-r panel and corrected rank-r panel
+     Gauss-Jordan, batch-leading sweep) at (1024, 120), K6d at rank 2 and
+     K6e at rank 8, and at (64, 30) with rank 4 (padded to 32 pivots), bit
+     for bit, ||MX - I||_max reported; K6f against the batch-last sweep
+     kernel with ``sym_col``, bit for bit;
 4. the routes at B = 1024 on ``gazebo_mpc`` with the bench schedule: the
    bench warm-up (120 stand and 380 trot ticks on 'gj'), then, each from
    a copy of that one warmed state, 'amortized' and the bench's 'full'
    candidate and the reduced tier of 'reduced_admm' (40 untimed and 100
    timed ticks each), then 'reduced', the legacy 'pallas' route, 'gj',
-   'chol', 'schur', 'sweep_t' and 'gj_t' (4 untimed and 20 timed). The
+   'chol', 'schur', 'sweep_t', 'gj_t' and 'xla' with ``torch.linalg.inv``
+   and with K1 (4 untimed and 20 timed). The
    launch counts are set to 0 just before each route's ticks (and before
    the 'gj' warm-up) and read just after; every kernel of a route must
    have launched on it. Every route but 'schur' (documented unsafe on
    this family: reported, not held) must keep every scenario alive;
-   'chol', 'sweep_t' and 'gj_t' must converge within 0.005 of 'gj'. A
+   'chol', 'sweep_t' and 'gj_t' must converge within 0.005 of 'gj', both
+   'xla' routes within 0.005 of the legacy 'pallas' route (the one with
+   K1 shares its inverse and differs only in the ADMM). Then, from copies
+   of the same warmed state, three closed-loop ticks of ``control_tick``
+   over the batch in fixed and in adaptive mode (its own solve; the host
+   reads of the adaptive loop counted), and the component profile
+   (``runtime.components``: the tick, the build, the KKT assemblies,
+   every KKT inverse with ||MX - I||_max, the ADMM solves, the batched
+   ticks), its launch counts set to 0 just before it and read just
+   after: every kernel it times must have launched. A
    small batch is then run through the same first trot ticks on the card
    and on the CPU (plain versions), which must agree in their torques,
    forces, contacts and carried controller state: on 'gj', 'amortized',
-   'full', 'chol', 'sweep_t' and 'gj_t' from one state, on the reduced
-   tier tick by tick from the card's state;
+   'full', 'chol', 'sweep_t', 'gj_t', 'xla' (with ``torch.linalg.inv``
+   and with K1) and ``control_tick`` in both modes from one state, on
+   the reduced tier tick by tick from the card's state;
 5. one JSON line listing each kernel, then the device line.
 
 Every failed check raises. The script needs a CUDA card and the
@@ -74,6 +90,7 @@ ROOT = Path(__file__).resolve().parent
 PKG = "a1_qp_mpc_controller_tpu_torch"
 PALLAS = "a1_qp_mpc_controller_tpu/ops/pallas_kernels.py"
 RETIRED = "a1_qp_mpc_controller_tpu/ops/pallas_retired.py"
+TRACE_DIR = ROOT / "build" / "traces"     # .gitignore lists build/
 
 BATCH = 1024
 STAND_TICKS = 120          # bench.py _warm_trot
@@ -97,10 +114,23 @@ LEGACY_KW = dict(admm_backend="pallas", use_pallas=True)
 # the per-tick-refactor routes that differ from 'gj' only in the inverse
 CHOL_KW, SCHUR_KW, SWEEP_KW, GJ_T_KW = (
     dict(GJ_KW, kkt_backend=k) for k in ("chol", "schur", "sweep_t", "gj_t"))
+# the JAX package's default route, with either inverse
+XLA_KW = dict(admm_backend="xla")
+XLA_K1_KW = dict(admm_backend="xla", use_pallas=True)
+# control_tick over the batch (the JAX package's tick under vmap): mode ->
+# config overrides; fixed runs the schedule's 25 iterations, adaptive
+# solves to 1e-5 within the profile's 100 iterations, then 75 more
+CONTROL_TICK_MODES = {"fixed": {}, "adaptive": dict(
+    mpc_solver_mode="adaptive", mpc_qp_iters=100)}
 K1, K2 = "batched_inverse", "fused_admm_shared"
 K3, K4 = "batched_inverse_small", "fused_admm"
 K5, K6G = "batched_chol_linv", "batched_inverse_T"
 K6S = "batched_inverse_sweep_T"
+K6B, K6C = "batched_inverse_inplace", "batched_inverse_combined"
+K6D, K6E = "batched_inverse_rank", "batched_inverse_rank_masked"
+K6F = "batched_inverse_spd"
+# the kernels the component profile times (runtime/components.py)
+PROFILE_KERNELS = {K1, K2, K4, K6B, K6C, K6D, K6E, K6F, K6G, K6S}
 # route: (tick keyword arguments, untimed ticks, timed ticks, the kernels
 # that must launch on it)
 ROUTES = {
@@ -114,6 +144,8 @@ ROUTES = {
     "schur": (SCHUR_KW, 4, 20, {K3, K2}),
     "sweep_t": (SWEEP_KW, 4, 20, {K6S, K2}),
     "gj_t": (GJ_T_KW, 4, 20, {K6G, K2}),
+    "xla": (XLA_KW, 4, 20, set()),
+    "xla_k1": (XLA_K1_KW, 4, 20, {K1}),
 }
 # routes whose solve carries the rescue pool, held to the converged limit
 CONVERGED_ROUTES = ("amortized", "full", "reduced_tier")
@@ -122,6 +154,9 @@ CONVERGED_ROUTES = ("amortized", "full", "reduced_tier")
 # from the same state; 'schur' is documented unsafe on this family and
 # is reported, not held (neither alive nor converged)
 LIKE_GJ = ("chol", "sweep_t", "gj_t")
+# the 'xla' routes against the legacy route, the same inverse and
+# iterations with the ADMM in plain PyTorch instead of K4
+LIKE_LEGACY = ("xla", "xla_k1")
 CONVERGED_GAP = 0.005
 UNHELD_ALIVE = ("schur",)
 # the small card-vs-CPU check: route -> (tick keyword arguments, whether
@@ -131,7 +166,8 @@ UNHELD_ALIVE = ("schur",)
 # stepsize is estimated from residuals at the float32 rounding floor and
 # accepted by comparing such residuals, so over free-running ticks the
 # two devices part by more than the limits (PERF.md, PR 2); the carried
-# state each tick writes is compared too, so a fault in it still shows
+# state each tick writes is compared too, so a fault in it still shows.
+# The control_tick entries hold config overrides, not tick arguments
 SMALL_ROUTES = {
     "gj": (GJ_KW, False),
     "amortized": (dict(AMORTIZED_KW, kkt_amortize_capacity=2), False),
@@ -140,6 +176,10 @@ SMALL_ROUTES = {
     "chol": (CHOL_KW, False),
     "sweep_t": (SWEEP_KW, False),
     "gj_t": (GJ_T_KW, False),
+    "xla": (XLA_KW, False),
+    "xla_k1": (XLA_K1_KW, False),
+    "control_tick_fixed": (CONTROL_TICK_MODES["fixed"], False),
+    "control_tick_adaptive": (CONTROL_TICK_MODES["adaptive"], False),
 }
 # the controller state a tick carries into the next, compared after each
 # small tick: the discrete leaves exactly, the warm start and the
@@ -223,7 +263,8 @@ class Port:
         for name in ("config", "types", "tensors", "control.grf",
                      "control.controller", "models.srb", "ops.qp",
                      "ops.kernels", "ops.kernels_retired", "ops.linalg",
-                     "parallel.batched", "sim.plant"):
+                     "parallel.batched", "sim.plant", "sim.closed_loop",
+                     "runtime.components", "runtime.profiling"):
             setattr(self, name.split(".")[-1],
                     importlib.import_module(f"{PKG}.{name}"))
 
@@ -376,12 +417,6 @@ def f32_products(port, m):
     return rel
 
 
-def resid_max(m, x):
-    import torch
-    eye = torch.eye(m.shape[-1], dtype=torch.float64, device=m.device)
-    return float((m.double() @ x.double() - eye).abs().max())
-
-
 def chol_rows(port, m):
     """The hybrid on the whole KKT batch, K5's launches counted from 0
     just before it and read just after (the panels it gives K5 kept);
@@ -434,6 +469,7 @@ def chol_rows(port, m):
                          plain_ms=plain_ms, lib_ms=lib_ms, bound_ms=bnd,
                          bound_by=by))
     chol = linalg.spd_cholesky_inverse(m)
+    resid_max = port.components.resid_max
     rec = dict(hybrid_resid=resid_max(m, hyb), chol_resid=resid_max(m, chol),
                rel_diff=float((hyb - chol).abs().max() / chol.abs().max()),
                hybrid_ms=cuda_ms(
@@ -473,7 +509,8 @@ def block_inverse_row(port, m):
     rel = float((x - ref)[fin].abs().max()) / scale if bool(fin.any()) else 0.0
     ok = torch.isfinite(x).flatten(1).all(dim=1)
     share = float(ok.float().mean())
-    resid = resid_max(m[ok], x[ok]) if bool(ok.any()) else float("nan")
+    resid = (port.components.resid_max(m[ok], x[ok]) if bool(ok.any())
+             else float("nan"))
     b, n, _ = m.shape
     ms = cuda_ms(lambda: r.spd_block_inverse(m), 10)
     lib_ms = cuda_ms(lambda: torch.linalg.inv(m), 10)
@@ -629,6 +666,56 @@ def phase_kernels(port, device):
                        flops=sweep_flops, resid_tol=None))
     log("[3h] K6a spd_block_inverse (K3 base)")
     out["k6a"] = block_inverse_row(port, m)
+    log("[3i] K6b-K6f vs plain, K6f vs the batch-last sweep")
+    out.update(retired_rows(port, m))
+    return out
+
+
+def retired_rows(port, m):
+    """K6b-K6f against their plain versions, bit for bit, at (1024, 120)
+    on the KKT batch (K6d at rank 2, K6e at rank 8: the JAX defaults) and
+    at (64, 30), a leading block of it, with rank 4 (both padded to 32
+    pivots); ||MX - I||_max reported. Then K6f against the batch-last
+    sweep kernel with ``sym_col``, which shares its arithmetic."""
+    import torch
+    r = port.kernels_retired
+    small = m[:64, :30, :30].contiguous()
+    rank = lambda fn, k: (lambda x: fn(x, rank=k))
+    cases = {
+        K6B: (r.batched_inverse_inplace, r.batched_inverse_inplace_plain,
+              r.batched_inverse_inplace, r.batched_inverse_inplace_plain),
+        K6C: (r.batched_inverse_combined, r.batched_inverse_combined_plain,
+              r.batched_inverse_combined, r.batched_inverse_combined_plain),
+        K6D: (rank(r.batched_inverse_rank, 2),
+              rank(r.batched_inverse_rank_plain, 2),
+              rank(r.batched_inverse_rank, 4),
+              rank(r.batched_inverse_rank_plain, 4)),
+        K6E: (rank(r.batched_inverse_rank_masked, 8),
+              rank(r.batched_inverse_rank_masked_plain, 8),
+              rank(r.batched_inverse_rank_masked, 4),
+              rank(r.batched_inverse_rank_masked_plain, 4)),
+        K6F: (r.batched_inverse_spd, r.batched_inverse_spd_plain,
+              r.batched_inverse_spd, r.batched_inverse_spd_plain),
+    }
+    labels = {K6B: "K6b", K6C: "K6c", K6D: "K6d r=2 / 4", K6E: "K6e r=8 / 4",
+              K6F: "K6f"}
+    out = {}
+    for name, (fn, plain, fn_small, plain_small) in cases.items():
+        flops = sweep_flops if name == K6F else gj_flops
+        out[name] = (inverse_rows(port, labels[name], m, (BATCH,), fn, plain,
+                                  flops=flops, resid_tol=None)
+                     + inverse_rows(port, labels[name], small, (64,),
+                                    fn_small, plain_small, flops=flops,
+                                    resid_tol=None))
+    x = r.batched_inverse_spd(m)
+    ref = r.batched_inverse_sweep_T(m, sym_col=True)
+    torch.cuda.synchronize()
+    equal = bool(torch.equal(x, ref))
+    log(f"  K6f vs the batch-last sweep kernel with sym_col at "
+        f"{tuple(m.shape)}: bit-equal {equal} (max |d| "
+        f"{float((x - ref).abs().max()):.3e})")
+    if not equal:
+        raise AssertionError("K6f differs from the sym_col sweep kernel")
     return out
 
 
@@ -701,7 +788,7 @@ def run_route(port, route, env, carry0, device):
         sites[site] = sites.get(site, 0) + 1
     log(f"  {route}: synchronizing call sites over 3 ticks: " + ", ".join(
         f"{s} x{v}" for s, v in sorted(sites.items(), key=lambda kv: -kv[1])))
-    prof = profile_ticks(route, step, carry)
+    prof = profile_ticks(port, route, step, carry)
     tick_ms = [events[i].elapsed_time(events[i + 1]) for i in range(n_timed)]
     conv_frac = float(torch.stack(conv).float().mean())
     z = carry.ps.root_pos[:, 2]
@@ -737,7 +824,8 @@ def run_route(port, route, env, carry0, device):
 
 
 def phase_routes(port, device):
-    """The 'gj' warm-up once, then every route from a copy of it."""
+    """The 'gj' warm-up once; then, each from a copy of it, every route,
+    ``control_tick`` in both modes and the component profile."""
     import torch
     k = port.kernels
     t0 = time.perf_counter()
@@ -755,26 +843,100 @@ def phase_routes(port, device):
     env = (cfg, pb, terr, joy_w)
     routes = {name: run_route(port, name, env, carry, device)
               for name in ROUTES}
-    gj_conv = routes["gj"]["converged"]
-    for name in LIKE_GJ:
-        conv = routes[name]["converged"]
-        log(f"  {name}: converged {conv} against 'gj' {gj_conv} (at most "
-            f"{CONVERGED_GAP} below)")
-        if conv < gj_conv - CONVERGED_GAP:
-            raise AssertionError(f"{name}: converged {conv}, 'gj' {gj_conv}")
-    return routes, gj_counts, warm_s
+    for base, names in (("gj", LIKE_GJ), ("pallas", LIKE_LEGACY)):
+        ref = routes[base]["converged"]
+        for name in names:
+            conv = routes[name]["converged"]
+            log(f"  {name}: converged {conv} against {base!r} {ref} (at "
+                f"most {CONVERGED_GAP} below)")
+            if conv < ref - CONVERGED_GAP:
+                raise AssertionError(f"{name}: converged {conv}, {base!r} "
+                                     f"{ref}")
+    log("[4b] control_tick over the batch")
+    ticks = control_ticks(port, env, carry, device)
+    log("[4c] component profile")
+    profile = phase_components(port, env, carry, device)
+    return routes, gj_counts, warm_s, ticks, profile
 
 
-def profile_ticks(route, step, carry, ticks: int = 5):
+def control_step(port, cfg, pb, terr, carry, joy):
+    """One closed-loop tick through ``control_tick`` over the batch:
+    the sensors, the tick, the plant."""
+    import torch
+    dt = torch.full((), cfg.control_dt, device=carry.ps.root_pos.device)
+    sens = port.plant.read_sensors(pb, carry.ps, carry.prev_root_lin_vel, dt)
+    cs, mem, tq = port.controller.control_tick(cfg, pb, carry.cs, carry.mem,
+                                               sens, joy, dt)
+    ps = port.plant.plant_step(pb, terr, carry.ps, tq, dt, 5)
+    return port.closed_loop.LoopCarry(cs=cs, mem=mem, ps=ps,
+                                      prev_root_lin_vel=carry.ps.root_lin_vel)
+
+
+def control_ticks(port, env, carry0, device, ticks: int = 3):
+    """``control_tick`` over the batch (its own solve, as the JAX package
+    runs it under ``vmap``) for a few closed-loop ticks from a copy of
+    the warmed state, in each of ``CONTROL_TICK_MODES``: tick times, the
+    adaptive loop's host reads, alive and finite torques."""
+    import torch
+    cfg, pb, terr, joy = env
+    out = {}
+    for mode, kw in CONTROL_TICK_MODES.items():
+        c_cfg = dataclasses.replace(cfg, **kw)
+        carry = clone(port, carry0)
+        port.tensors.host_syncs = 0
+        ms = []
+        for _ in range(ticks):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            carry = control_step(port, c_cfg, pb, terr, carry, joy)
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+        reads = port.tensors.host_syncs / ticks
+        alive = float((~torch.isnan(carry.ps.root_pos[:, 2])).float().mean())
+        finite = bool(torch.isfinite(carry.cs.joint_torques).all())
+        out[mode] = dict(tick_ms=ms, host_reads_per_tick=reads, alive=alive)
+        log(f"  control_tick {mode} B={BATCH}: {ticks} closed-loop ticks "
+            f"{', '.join(f'{t:.3f}' for t in ms)} ms; host reads/tick "
+            f"{reads}; alive {alive}, torques finite {finite}")
+        if alive != 1.0 or not finite:
+            raise AssertionError(f"control_tick {mode}: alive {alive}, "
+                                 f"finite {finite}")
+    return out
+
+
+def phase_components(port, env, carry, device):
+    """The component profile (``runtime.components``) at B = 1024 on the
+    warmed state, the launch counts set to 0 just before it and read just
+    after: every kernel it times must have launched."""
+    import torch
+    cfg, pb, terr, joy = env
+    k = port.kernels
+    dt = torch.full((), cfg.control_dt, device=device)
+    sens = port.plant.read_sensors(pb, carry.ps, carry.prev_root_lin_vel, dt)
+    k.reset_launches()
+    rows = port.components.components(cfg, pb, carry.cs, carry.mem, sens,
+                                      joy, dt, printer=lambda t: log("  " + t))
+    torch.cuda.synchronize()
+    counts = dict(k.launches)
+    log(f"  component profile launches: {counts}")
+    if not all(counts[name] > 0 for name in PROFILE_KERNELS):
+        raise AssertionError(f"a kernel of the profile never launched: "
+                             f"{counts}")
+    return dict(rows=rows, launches=counts)
+
+
+def profile_ticks(port, route, step, carry, ticks: int = 5):
     """Kernel time by name over a few ticks (torch.profiler's CUDA kernel
-    events, which do not overlap on the one stream), the kernel launches
-    per tick, and the share of the wall time the card was busy."""
+    events, which do not overlap on the one stream, through
+    ``runtime.profiling.trace``; the trace goes to ``TRACE_DIR/<route>``),
+    the kernel launches per tick, and the share of the wall time the
+    card was busy."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with port.profiling.trace(str(TRACE_DIR / route)) as prof:
         t0 = time.perf_counter()
         for _ in range(ticks):
             carry, _ = step(carry)
@@ -822,6 +984,9 @@ def phase_small(port, device):
     for route, (kw, synced) in SMALL_ROUTES.items():
         def step(dev, c, kc):
             p, tr, jw = env[dev]
+            if route.startswith("control_tick"):
+                return control_step(port, dataclasses.replace(cfg, **kw), p,
+                                    tr, c, jw), kc
             if route == "amortized":
                 return port.batched.batched_closed_loop_step(
                     cfg, p, tr, c, jw, cfg.control_dt, device=dev,
@@ -918,7 +1083,7 @@ def main() -> int:
     rows = phase_kernels(port, device)
 
     log("[4] routes")
-    routes, gj_counts, warm_s = phase_routes(port, device)
+    routes, gj_counts, warm_s, ticks, profile = phase_routes(port, device)
     small = phase_small(port, device)
 
     log("[5] kernels")
@@ -929,10 +1094,14 @@ def main() -> int:
     # route's counts beside them
     main_route = {K1: "amortized", K2: "amortized", K3: "reduced_tier",
                   K4: "pallas", K5: "spd_cholesky_inverse_hybrid",
-                  K6G: "gj_t", K6S: "sweep_t"}
+                  K6G: "gj_t", K6S: "sweep_t", K6B: "components",
+                  K6C: "components", K6D: "components", K6E: "components",
+                  K6F: "components"}
     launches = {name: routes[r]["launches"][name]
                 for name, r in main_route.items() if r in routes}
     launches[K5] = rows["k5_path_launches"]
+    launches.update({name: profile["launches"][name]
+                     for name in (K6B, K6C, K6D, K6E, K6F)})
     kernels = [
         kernel_entry(K1, "gj_inverse.cu", f"{PALLAS}:96", rows[K1], launches,
                      True),
@@ -948,12 +1117,23 @@ def main() -> int:
                      launches, True),
         kernel_entry(K6S, "inverse_t.cu", f"{RETIRED}:741", rows[K6S],
                      launches, True),
+        kernel_entry(K6B, "gj_inplace.cu", f"{RETIRED}:144", rows[K6B],
+                     launches, True),
+        kernel_entry(K6C, "gj_inverse.cu", f"{RETIRED}:213", rows[K6C],
+                     launches, True),
+        kernel_entry(K6D, "gj_rank.cu", f"{RETIRED}:428", rows[K6D],
+                     launches, True),
+        kernel_entry(K6E, "gj_rank.cu", f"{RETIRED}:397", rows[K6E],
+                     launches, True),
+        kernel_entry(K6F, "sweep_inverse.cu", f"{RETIRED}:489", rows[K6F],
+                     launches, True),
     ]
     for entry in kernels:
         entry["launches_route"] = main_route[entry["name"]]
         entry["launches_by_route"] = dict(
             {r: m["launches"][entry["name"]] for r, m in routes.items()},
-            gj_warmup=gj_counts[entry["name"]])
+            gj_warmup=gj_counts[entry["name"]],
+            components=profile["launches"][entry["name"]])
     kernels[4]["launches_by_route"][main_route[K5]] = launches[K5]
     kernels[2]["occupancy_per_sm"] = occupancy
     # K6a has no kernel of its own: K3 at its base (4 launches a tick on
@@ -966,6 +1146,7 @@ def main() -> int:
         "K6i batched_inverse_sweep_T_chunked": f"{RETIRED}:638",
         "K6k batched_inverse_sweep_T_masked2": f"{RETIRED}:824"}
     log(json.dumps({"routes": routes, "small": small, "warm_s": warm_s,
+                    "control_tick": ticks, "components": profile["rows"],
                     "f32_product_rel": rows["f32_product_rel"],
                     "seconds": time.perf_counter() - t_start}))
     log(card)

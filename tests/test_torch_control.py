@@ -175,10 +175,13 @@ def test_batched_tick_other_inverses_match_jax_gj(tick, kkt_backend):
 
 
 def test_unported_routes_raise(tick):
-    args = (tick["cfg"], tick["pb"], tick["cs"], tick["mem"], tick["sens"],
-            tick["joy"], tick["dt"])
+    """The stand-QP branch of ``compute_grf`` is not ported yet: the tick
+    on ``gazebo_qp`` (its stance control type 0) raises."""
+    qp_cfg, _ = tcfg.load_profile("gazebo_qp", device=CPU)
+    args = (tick["pb"], tick["cs"], tick["mem"], tick["sens"], tick["joy"],
+            tick["dt"])
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tbatched.batched_control_tick(*args, admm_backend="xla")
+        tctl.control_tick(qp_cfg, *args)
 
 
 def test_plant_matches_jax(rng):

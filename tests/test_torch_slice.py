@@ -99,7 +99,8 @@ def test_three_ticks_match_jax(start, route, monkeypatch):
     pk = tb.make_kkt_carry(start["tcfg"], B, device=CPU)
     ages = []
     for tick in range(3):
-        kw = dict(device=CPU, return_stats=True, **RESCUE)
+        kw = dict(device=CPU, return_stats=True,
+                  admm_backend="pallas_shared", **RESCUE)
         if route != "amortized":
             jc, jst = start[route](jc, start["trot"])
             pc, pst = tb.batched_closed_loop_step(
