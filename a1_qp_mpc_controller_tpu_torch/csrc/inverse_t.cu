@@ -1,5 +1,6 @@
-// Batched pivot-free inverses of SPD matrices in the batch-last layout
-// (n, n, B), float32: a Gauss-Jordan and a sweep-operator kernel.
+// Batched pivot-free inverses of SPD matrices, float32: the Gauss-Jordan
+// and the sweep-operator inverse of the TPU's batch-last kernels, one
+// block a matrix of the batch-leading (B, n, n) input.
 //
 // Replaces the TPU kernels of a1_qp_mpc_controller_tpu/ops/pallas_retired.py:
 // - :564 batched_inverse_T (body _gj_inverse_T_kernel, :516): Gauss-Jordan
@@ -17,215 +18,285 @@
 //   they chunk and alias VMEM; their arithmetic is this one.
 //
 // Bound on an H100 SXM: a Gauss-Jordan inverse needs 2n^2(n+1) operations
-// a matrix and the sweep 2n^3; at n = 120 and B = 1024 that is ~3.6 GFLOP
+// a matrix and the sweep 2n^3; at n = 120 and B = 1024 that is ~3.5 G
 // (~0.053 ms at 67 TFLOP/s) against 2 x 59 MB read and written once
-// (~0.035 ms at 3.35 TB/s), so operations bound both. This design is far
-// from that: the working arrays (59 MB each at that size) exceed the
-// 50 MB L2, so every pivot streams the live part of them through the
-// memory system, n^2 B floats read and written a pivot (~14 GB in all).
+// (~0.035 ms at 3.35 TB/s), so operations bound both. The multiply and the
+// subtract must stay separate instructions (a fused multiply-add would
+// round once where the plain versions round twice), which halves the
+// float32 peak: ~0.105 ms.
 //
-// Design: the TPU kept 128 scenarios in the lanes of (n, n, 128) blocks;
-// here a tile is (n, n, 8) with the tiles stored one after another, so
-// that (i, j) of a tile's 8 scenarios is one 32-byte sector and four
-// neighbouring (i, j) one 128-byte line (the wrapper lays the batch out
-// so, padding it to a multiple of 8). A block owns a tile (B / 8 blocks:
-// 128 at B = 1024, about one per SM) and runs the n pivots in a loop, two
-// barriers each: its 1024 threads first stage the scaled pivot row and
-// the pivot column in shared memory (2 n x 8 floats), then update the
-// live entries, a warp a row and four columns of the row at once, 8 loads
-// in flight a thread. Odd pivots walk the rows and columns backwards, so
-// that a pivot starts on the lines the last one touched last, which are
-// the likeliest still in L2. Gauss-Jordan updates only the live columns
-// of [M | I]: M's columns j > k and the inverse's columns j <= k (M's
-// dead columns never feed the inverse; the inverse's columns j > k would
-// each subtract f[i] * 0, which is exact while the pivots stay finite).
-// The sweep updates the whole array and writes the last pivot negated.
+// The design these kernels replace carried the TPU's batch-in-lanes layout
+// over as (n, n, 8) tiles in device memory; every pivot streamed the live
+// arrays through L2 and HBM (n^2 B floats read and written a pivot, ~14 GB
+// a call, more than the 50 MB L2 holds): 7.2 ms (Gauss-Jordan) and 6.9 ms
+// (sweep) at (1024, 120) on an H100, slower than torch.linalg.inv.
+//
+// Design: one block a matrix, read straight from (B, n, n) and written
+// once. Both inverses work in one array:
+// - the sweep's own;
+// - Gauss-Jordan's live columns of [M | I]: slot j holds M's column j for
+//   j > k and the inverse's column j for j <= k. M's dead columns never
+//   feed the inverse, and the inverse's columns j > k are still unit
+//   columns, which each pivot would leave as they are (x - f[i] * 0). At
+//   pivot k slot k turns over from M's column k (the factor column) to the
+//   inverse's: 0 - f[i] * (1 * (1/d)) off row k, 1 * (1/d) at (k, k).
+// So a pivot updates n columns, and the two kernels differ only in four
+// rules: column k (t or 0 - t, t = c[i] * (1/d)), (k, k) (-1/d or 1/d),
+// the factor column (column k, or row k with sym_col) and the final
+// negation. One kernel body serves both, with a compile-time flag.
+// - n <= 128: a 16 x 16 thread grid, each thread an R x R register tile
+//   (R = 1, 2, 4 or 8 for n <= 16, 32, 64, 128), entry (ty + 16a, tx + 16b)
+//   in w[a][b], zeros past n. The pivot loop nests an unrolled a0 over the
+//   register rows and a runtime p over 16 (k = 16 a0 + p), so every
+//   register index is a compile-time constant and the tile stays in
+//   registers. Pivot k reads row k and column k from a double-buffered
+//   staging area in shared memory (2n floats); each thread computes 1/d
+//   itself from the staged diagonal. After its update the threads that own
+//   row k + 1 and column k + 1 write them to the other buffer: one barrier
+//   a pivot. At R = 8: 96 registers, no spills, two blocks an SM.
+// - n > 128: the working array is the output in device memory, each entry
+//   owned by one thread (a warp a row, lanes along the columns), with the
+//   same staging: 4n floats of shared memory, so n <= 14,528.
 // Products, quotients and differences are __fmul_rn / __fsub_rn and
 // 1.0f / d an IEEE division, so no fused multiply-add changes the
-// rounding against the plain PyTorch versions.
+// rounding against the plain PyTorch versions: the results are bit-equal.
+// At (1024, 120) on an H100 80GB HBM3 (700 W), chip_smoke.py reads
+// 0.33 ms for each kernel (PERF.md).
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kLanes = 8;                    // scenarios a tile
-constexpr int kThreads = 1024;
-constexpr int kWarps = kThreads / 32;
-constexpr int kCols = 32 / kLanes;           // columns a warp takes at once
-constexpr int kSlots = kThreads / kLanes;    // pivot entries staged at once
-constexpr int kDepth = 8;                    // loads in flight a thread
+constexpr int kSide = 16;                  // the register kernel's grid side
+constexpr int kThreads = kSide * kSide;
+constexpr int kLargeThreads = 512;
+constexpr int kLargeWarps = kLargeThreads / 32;
+constexpr size_t kDefaultSmem = 48 * 1024;
 
-// A thread's place in its block's tile: scenario s, the column c0 of each
-// group of kCols it takes, its warp, and its slot for staging.
-struct Place {
-  int s, c0, warp, q;
-  bool active;
-};
-
-__device__ __forceinline__ Place place(int batch) {
-  const int lane = threadIdx.x % 32;
-  const int tid = static_cast<int>(threadIdx.x);
-  return Place{lane % kLanes, lane / kLanes, tid / 32, tid / kLanes,
-               static_cast<int>(blockIdx.x) * kLanes + lane % kLanes < batch};
+// The entry rules of pivot k, shared by both storage paths.
+__device__ __forceinline__ float off_pivot(float w, float c, float rd) {
+  return __fsub_rn(w, __fmul_rn(c, rd));
 }
 
-// The t-th of n rows or columns: forwards on even pivots, backwards on
-// odd ones.
-__device__ __forceinline__ int nth(int t, int n, int k) {
-  return (k & 1) ? n - 1 - t : t;
+template <bool kSweep>
+__device__ __forceinline__ float pivot_column(float c, float inv_d) {
+  const float t = __fmul_rn(c, inv_d);
+  return kSweep ? t : __fsub_rn(0.0f, t);
 }
 
-__global__ void __launch_bounds__(kThreads)
-gj_inverse_t_kernel(float* __restrict__ m, float* __restrict__ inv, int n,
-                    int batch) {
+template <bool kSweep>
+__device__ __forceinline__ float pivot_diagonal(float inv_d) {
+  return kSweep ? -inv_d : inv_d;
+}
+
+// n <= 16 R: the matrix in registers.
+template <int R, bool kSweep>
+__global__ void __launch_bounds__(kThreads, 2)
+inverse_reg_kernel(const float* __restrict__ m, float* __restrict__ out,
+                   int n, int sym_col) {
+  constexpr int kPad = kSide * R;
+  __shared__ float stage_row[2][kPad];
+  __shared__ float stage_col[2][kPad];
+  const int tx = static_cast<int>(threadIdx.x) % kSide;
+  const int ty = static_cast<int>(threadIdx.x) / kSide;
+  const float* src = m + blockIdx.x * static_cast<size_t>(n) * n;
+
+  float w[R][R];
+#pragma unroll
+  for (int a = 0; a < R; ++a) {
+#pragma unroll
+    for (int b = 0; b < R; ++b) {
+      const int i = ty + kSide * a;
+      const int j = tx + kSide * b;
+      w[a][b] = (i < n && j < n) ? src[i * n + j] : 0.0f;
+    }
+  }
+  if (ty == 0) {
+#pragma unroll
+    for (int b = 0; b < R; ++b) stage_row[0][tx + kSide * b] = w[0][b];
+  }
+  if (tx == 0) {
+#pragma unroll
+    for (int a = 0; a < R; ++a) stage_col[0][ty + kSide * a] = w[a][0];
+  }
+  __syncthreads();
+
+#pragma unroll
+  for (int a0 = 0; a0 < R; ++a0) {
+    // the register row and column of pivot 16 (a0 + 1), the next a0's first
+    constexpr int kLast = R - 1;
+    const int a1 = a0 < kLast ? a0 + 1 : kLast;
+#pragma unroll 1
+    for (int p = 0; p < kSide && kSide * a0 + p < n; ++p) {
+      const int k = kSide * a0 + p;
+      const float* sr = stage_row[k & 1];
+      const float* sc = sym_col ? sr : stage_col[k & 1];
+      const float inv_d = 1.0f / sr[k];
+      float rd[R], c[R];
+#pragma unroll
+      for (int b = 0; b < R; ++b) {
+        rd[b] = __fmul_rn(sr[tx + kSide * b], inv_d);
+      }
+#pragma unroll
+      for (int a = 0; a < R; ++a) c[a] = sc[ty + kSide * a];
+#pragma unroll
+      for (int a = 0; a < R; ++a) {
+#pragma unroll
+        for (int b = 0; b < R; ++b) {
+          w[a][b] = off_pivot(w[a][b], c[a], rd[b]);
+        }
+      }
+      if (ty == p) {             // row k: register row a0
+#pragma unroll
+        for (int b = 0; b < R; ++b) w[a0][b] = rd[b];
+      }
+      if (tx == p) {             // column k: register column a0
+#pragma unroll
+        for (int a = 0; a < R; ++a) {
+          w[a][a0] = pivot_column<kSweep>(c[a], inv_d);
+        }
+        if (ty == p) w[a0][a0] = pivot_diagonal<kSweep>(inv_d);
+      }
+      // stage row and column k + 1 for the next pivot
+      float* nr = stage_row[(k + 1) & 1];
+      float* nc = stage_col[(k + 1) & 1];
+      if (p + 1 < kSide) {
+        if (ty == p + 1) {
+#pragma unroll
+          for (int b = 0; b < R; ++b) nr[tx + kSide * b] = w[a0][b];
+        }
+        if (tx == p + 1) {
+#pragma unroll
+          for (int a = 0; a < R; ++a) nc[ty + kSide * a] = w[a][a0];
+        }
+      } else if (a0 < kLast) {
+        if (ty == 0) {
+#pragma unroll
+          for (int b = 0; b < R; ++b) nr[tx + kSide * b] = w[a1][b];
+        }
+        if (tx == 0) {
+#pragma unroll
+          for (int a = 0; a < R; ++a) nc[ty + kSide * a] = w[a][a1];
+        }
+      }
+      __syncthreads();
+    }
+  }
+
+  // The store computes its offsets afresh from values the compiler cannot
+  // tie to the load's: holding those through the pivots would take the
+  // registers that the tile needs (and spill at R = 8).
+  int i0 = ty, j0 = tx, n0 = n;
+  asm volatile("" : "+r"(i0), "+r"(j0), "+r"(n0));
+  float* dst = out + blockIdx.x * static_cast<size_t>(n0) * n0;
+#pragma unroll
+  for (int a = 0; a < R; ++a) {
+#pragma unroll
+    for (int b = 0; b < R; ++b) {
+      const int i = i0 + kSide * a;
+      const int j = j0 + kSide * b;
+      if (i < n0 && j < n0) dst[i * n0 + j] = kSweep ? -w[a][b] : w[a][b];
+    }
+  }
+}
+
+// n > 128: the working array in device memory (the output).
+template <bool kSweep>
+__global__ void __launch_bounds__(kLargeThreads)
+inverse_large_kernel(const float* __restrict__ m, float* __restrict__ out,
+                     int n, int sym_col) {
   extern __shared__ float smem[];
-  float* row = smem;               // n x kLanes: live pivot row * (1/d)
-  float* fac = row + n * kLanes;   // n x kLanes: column k of M
-  const Place t = place(batch);
-  const size_t tile = static_cast<size_t>(blockIdx.x) * n * n * kLanes;
-  m += tile;
-  inv += tile;
-  // entry (i, j) of this thread's scenario
-  auto at = [n, &t](int i, int j) { return (i * n + j) * kLanes + t.s; };
+  // row k at smem + (k & 1) n, column k at smem + (2 + (k & 1)) n
+  float* stage_col = smem + 2 * n;
+  const int warp = static_cast<int>(threadIdx.x) / 32;
+  const int lane = static_cast<int>(threadIdx.x) % 32;
+  const size_t nn = static_cast<size_t>(n) * n;
+  const float* src = m + blockIdx.x * nn;
+  float* w = out + blockIdx.x * nn;
 
-  if (t.active) {
-    for (int idx = t.q; idx < n * n; idx += kSlots) {
-      inv[idx * kLanes + t.s] = (idx / n == idx % n) ? 1.0f : 0.0f;
+  for (int i = warp; i < n; i += kLargeWarps) {
+    for (int j = lane; j < n; j += 32) {
+      const float v = src[i * n + j];
+      w[i * n + j] = v;
+      if (i == 0) smem[j] = v;
+      if (j == 0) stage_col[i] = v;
     }
   }
   __syncthreads();
 
   for (int k = 0; k < n; ++k) {
-    if (t.active) {
-      const float inv_d = 1.0f / m[at(k, k)];
-      for (int v = t.q; v < n; v += kSlots) {
-        row[v * kLanes + t.s] =
-            __fmul_rn(v <= k ? inv[at(k, v)] : m[at(k, v)], inv_d);
-        fac[v * kLanes + t.s] = m[at(v, k)];
-      }
-    }
-    __syncthreads();
-    if (t.active) {
-      for (int ii = t.warp; ii < n; ii += kWarps) {
-        const int i = nth(ii, n, k);
-        const float f = fac[i * kLanes + t.s];
-        for (int v0 = t.c0; v0 < n; v0 += kCols * kDepth) {
-          int off[kDepth];
-          float val[kDepth];
-#pragma unroll
-          for (int u = 0; u < kDepth; ++u) {
-            const int vv = v0 + u * kCols;
-            off[u] = -1;
-            if (vv < n) {
-              const int v = nth(vv, n, k);
-              off[u] = at(i, v);
-              const float r = row[v * kLanes + t.s];
-              const float* src = v <= k ? inv : m;
-              val[u] = (i == k) ? r
-                                : __fsub_rn(src[off[u]], __fmul_rn(f, r));
-              if (v <= k) off[u] = -2 - off[u];    // the inverse's column
-            }
-          }
-#pragma unroll
-          for (int u = 0; u < kDepth; ++u) {
-            if (off[u] >= 0) m[off[u]] = val[u];
-            if (off[u] < -1) inv[-2 - off[u]] = val[u];
-          }
+    const float* sr = smem + (k & 1) * n;
+    const float* sc = sym_col ? sr : stage_col + (k & 1) * n;
+    float* nr = smem + ((k + 1) & 1) * n;
+    float* nc = stage_col + ((k + 1) & 1) * n;
+    const float inv_d = 1.0f / sr[k];
+    const bool last = k == n - 1;
+    for (int i = warp; i < n; i += kLargeWarps) {
+      const float c = sc[i];
+      for (int j = lane; j < n; j += 32) {
+        const float rd = __fmul_rn(sr[j], inv_d);
+        float v;
+        if (i == k) {
+          v = (j == k) ? pivot_diagonal<kSweep>(inv_d) : rd;
+        } else if (j == k) {
+          v = pivot_column<kSweep>(c, inv_d);
+        } else {
+          v = off_pivot(w[i * n + j], c, rd);
         }
+        w[i * n + j] = (kSweep && last) ? -v : v;
+        if (i == k + 1) nr[j] = v;
+        if (j == k + 1) nc[i] = v;
       }
     }
     __syncthreads();
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-sweep_inverse_t_kernel(float* __restrict__ w, int n, int batch, int sym_col) {
-  extern __shared__ float smem[];
-  float* row = smem;               // n x kLanes: pivot row * (1/d)
-  float* col = row + n * kLanes;   // n x kLanes: pivot column
-  const Place t = place(batch);
-  w += static_cast<size_t>(blockIdx.x) * n * n * kLanes;
-  auto at = [n, &t](int i, int j) { return (i * n + j) * kLanes + t.s; };
-
-  for (int k = 0; k < n; ++k) {
-    float inv_d = 0.0f;
-    if (t.active) {
-      inv_d = 1.0f / w[at(k, k)];
-      for (int v = t.q; v < n; v += kSlots) {
-        const float rk = w[at(k, v)];
-        row[v * kLanes + t.s] = __fmul_rn(rk, inv_d);
-        col[v * kLanes + t.s] = sym_col ? rk : w[at(v, k)];
-      }
+template <bool kSweep>
+int launch(const float* m, float* out, int batch, int n, int sym_col,
+           void* stream) {
+  if (batch == 0 || n == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n <= kSide) {
+    inverse_reg_kernel<1, kSweep><<<batch, kThreads, 0, s>>>(m, out, n,
+                                                             sym_col);
+  } else if (n <= 2 * kSide) {
+    inverse_reg_kernel<2, kSweep><<<batch, kThreads, 0, s>>>(m, out, n,
+                                                             sym_col);
+  } else if (n <= 4 * kSide) {
+    inverse_reg_kernel<4, kSweep><<<batch, kThreads, 0, s>>>(m, out, n,
+                                                             sym_col);
+  } else if (n <= 8 * kSide) {
+    inverse_reg_kernel<8, kSweep><<<batch, kThreads, 0, s>>>(m, out, n,
+                                                             sym_col);
+  } else {
+    const size_t smem = static_cast<size_t>(4 * n) * sizeof(float);
+    if (smem > kDefaultSmem) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          inverse_large_kernel<kSweep>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (err != cudaSuccess) return static_cast<int>(err);
     }
-    __syncthreads();
-    if (t.active) {
-      const bool last = k == n - 1;
-      for (int ii = t.warp; ii < n; ii += kWarps) {
-        const int i = nth(ii, n, k);
-        const float c = col[i * kLanes + t.s];
-        for (int v0 = t.c0; v0 < n; v0 += kCols * kDepth) {
-          int off[kDepth];
-          float val[kDepth];
-#pragma unroll
-          for (int u = 0; u < kDepth; ++u) {
-            const int vv = v0 + u * kCols;
-            off[u] = -1;
-            if (vv < n) {
-              const int j = nth(vv, n, k);
-              off[u] = at(i, j);
-              if (i == k) {
-                val[u] = (j == k) ? -inv_d : row[j * kLanes + t.s];
-              } else if (j == k) {
-                val[u] = __fmul_rn(c, inv_d);
-              } else {
-                val[u] = __fsub_rn(w[off[u]],
-                                   __fmul_rn(c, row[j * kLanes + t.s]));
-              }
-            }
-          }
-#pragma unroll
-          for (int u = 0; u < kDepth; ++u) {
-            if (off[u] >= 0) w[off[u]] = last ? -val[u] : val[u];
-          }
-        }
-      }
-    }
-    __syncthreads();
+    inverse_large_kernel<kSweep><<<batch, kLargeThreads, smem, s>>>(
+        m, out, n, sym_col);
   }
+  return static_cast<int>(cudaGetLastError());
 }
-
-size_t smem_bytes(int n) {
-  return static_cast<size_t>(2 * n * kLanes) * sizeof(float);
-}
-
-int tiles(int batch) { return (batch + kLanes - 1) / kLanes; }
 
 }  // namespace
 
-// The tiles' width: the wrapper lays a batch of B out as ceil(B / this)
-// tiles of (n, n, this), one after another.
-extern "C" int inverse_t_lanes() { return kLanes; }
-
-// m: (tiles, n, n, 8) contiguous float32 on the device, overwritten (the
-// working copy); inv: the same shape, the inverse. Scenarios from `batch`
-// on (the last tile's padding) are neither read nor written. Returns the
-// CUDA error code of the launch (0 on success).
-extern "C" int inverse_t_gj_launch(float* m, float* inv, int n, int batch,
-                                   void* stream) {
-  if (batch == 0 || n == 0) return 0;
-  gj_inverse_t_kernel<<<tiles(batch), kThreads, smem_bytes(n),
-                        static_cast<cudaStream_t>(stream)>>>(m, inv, n,
-                                                             batch);
-  return static_cast<int>(cudaGetLastError());
+// m, out: (batch, n, n) contiguous float32 on the device; out gets the
+// Gauss-Jordan inverse, m is left as it is. Returns the CUDA error code of
+// the launch (0 on success).
+extern "C" int inverse_t_gj_launch(const float* m, float* out, int batch,
+                                   int n, void* stream) {
+  return launch<false>(m, out, batch, n, 0, stream);
 }
 
-// w: (tiles, n, n, 8) contiguous float32 on the device, overwritten by the
-// inverse. Returns the CUDA error code of the launch (0 on success).
-extern "C" int inverse_t_sweep_launch(float* w, int n, int batch,
-                                      int sym_col, void* stream) {
-  if (batch == 0 || n == 0) return 0;
-  sweep_inverse_t_kernel<<<tiles(batch), kThreads, smem_bytes(n),
-                           static_cast<cudaStream_t>(stream)>>>(w, n, batch,
-                                                                sym_col);
-  return static_cast<int>(cudaGetLastError());
+// The same for the sweep; sym_col reads the pivot column off the pivot
+// row.
+extern "C" int inverse_t_sweep_launch(const float* m, float* out, int batch,
+                                      int n, int sym_col, void* stream) {
+  return launch<true>(m, out, batch, n, sym_col, stream);
 }

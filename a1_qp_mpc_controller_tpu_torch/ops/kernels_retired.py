@@ -8,12 +8,13 @@ variants that the component profile (``runtime/components.py``) times.
   definiteness and give NaN on the Ruiz-scaled KKT family; the port does
   what the reference does.
 - K6g ``batched_inverse_T``: Gauss-Jordan in the batch-last layout
-  (n, n, B), through ``csrc/inverse_t.cu``.
+  (n, n, B), on the card one block a matrix with the live columns of
+  [M | I] in one array (``csrc/inverse_t.cu``).
 - K6h-k ``batched_inverse_sweep_T`` (``sym_col`` option) and its
   ``_chunked``, ``_masked`` and ``_masked2`` variants: the one-array sweep
   operator in the batch-last layout. The four TPU kernels differ only in
-  how they chunk and alias VMEM, so they share one CUDA kernel
-  (``csrc/inverse_t.cu``) and one plain version.
+  how they chunk and alias VMEM, so they share one plain version and one
+  CUDA kernel body with K6g (``csrc/inverse_t.cu``).
 - K6b ``batched_inverse_inplace``: Gauss-Jordan in one working array
   (``csrc/gj_inplace.cu``).
 - K6c ``batched_inverse_combined``: Gauss-Jordan on [M | I], the pivot row
@@ -32,26 +33,19 @@ The TPU-only knobs of the JAX entry points (``sblock``, ``chunk``,
 ``alias``, ``block``, ``interpret``) are not carried across, nor is their
 padding (n to a multiple of 8 or to 128 lanes, the batch to ``sblock`` or
 ``block``: identity and zero tails that leave the answer as it is). The
-batch-last entry points keep their transposes: they take and return
-(B, n, n), and work batch-last inside, the plain versions in the JAX
-kernels' (n, n, B) layout and the CUDA kernels in that layout cut into
-tiles of 8 scenarios, (ceil(B / 8), n, n, 8). On a CPU tensor each entry
-point runs its plain version; on a CUDA tensor it launches its kernel or
-raises, counted in ``kernels.launches``.
+batch-last entry points take and return (B, n, n); their plain versions
+work in the JAX kernels' (n, n, B) layout, their CUDA kernel on (B, n, n)
+as it is. On a CPU tensor each entry point runs its plain version; on a
+CUDA tensor it launches its kernel or raises, counted in
+``kernels.launches``.
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
 from a1_qp_mpc_controller_tpu_torch.ops import kernels
 from a1_qp_mpc_controller_tpu_torch.ops.linalg import pad_identity
-
-_P = ctypes.c_void_p
-_GJ_ARGTYPES = [_P, _P, ctypes.c_int, ctypes.c_int, _P]
-_SWEEP_ARGTYPES = [_P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P]
 
 
 # --- K6a: Schur-complement recursion --------------------------------------
@@ -84,42 +78,34 @@ def spd_block_inverse(m: torch.Tensor, base: int = 32) -> torch.Tensor:
     return 0.5 * (out + out.transpose(1, 2))
 
 
-# --- layouts --------------------------------------------------------------
+# --- the batch-last entry points ----------------------------------------
 
-LANES = 8   # scenarios a tile of the CUDA kernels (csrc/inverse_t.cu)
+T_N_MAX = kernels.MAX_SMEM_BYTES // 16  # csrc/inverse_t.cu past n = 128
 
 
 def _to_batch_leading(mt: torch.Tensor) -> torch.Tensor:
     return mt.permute(2, 0, 1).contiguous()
 
 
-def _to_tiles(m: torch.Tensor) -> torch.Tensor:
-    """(B, n, n) -> (ceil(B / 8), n, n, 8): the kernels' layout, the
-    (n, n, B) layout cut into tiles of 8 scenarios stored one after
-    another (zeros pad the last tile; the kernels leave them alone)."""
-    b, n, _ = m.shape
-    t = -(-b // LANES)
-    mp = m.new_zeros((t * LANES, n, n))
-    mp[:b] = m
-    return mp.view(t, LANES, n, n).permute(0, 2, 3, 1).contiguous()
-
-
-def _from_tiles(x: torch.Tensor, b: int) -> torch.Tensor:
-    t, n, _, lanes = x.shape
-    return x.permute(0, 3, 1, 2).reshape(t * lanes, n, n)[:b].contiguous()
-
-
-def _check_lanes() -> None:
-    lanes = kernels._fn("inverse_t", "lanes", [])()
-    if lanes != LANES:
-        raise RuntimeError(f"inverse_t.cu tiles {lanes} scenarios, the "
-                           f"wrappers {LANES}")
-
-
 def _check_square(m: torch.Tensor) -> None:
     if m.ndim != 3 or m.shape[1] != m.shape[2]:
         raise ValueError(f"expected (B, n, n), got {tuple(m.shape)}")
     kernels._check("m", m, tuple(m.shape), m.device)
+
+
+def _inverse_t(m: torch.Tensor, name: str, symbol: str, plain,
+               *extra: int) -> torch.Tensor:
+    """The batch-last entry points: the plain version in the (n, n, B)
+    layout on the CPU; on the card ``symbol`` of ``csrc/inverse_t.cu``,
+    which reads (B, n, n) as it is, counted in ``launches[name]``."""
+    def batch_leading(x):
+        return _to_batch_leading(plain(x.permute(1, 2, 0), *extra))
+
+    _check_square(m)
+    if not kernels._on_card(m):
+        return batch_leading(m)
+    return kernels._inverse(m, name, "inverse_t", batch_leading, T_N_MAX,
+                            symbol=symbol, extra=extra)
 
 
 # --- K6g: batch-last Gauss-Jordan -----------------------------------------
@@ -147,23 +133,11 @@ def gj_inverse_T_plain(mt: torch.Tensor) -> torch.Tensor:
 
 
 def batched_inverse_T(m: torch.Tensor) -> torch.Tensor:
-    """K6g: invert a batch of SPD matrices (B, n, n) with the batch-last
-    Gauss-Jordan kernel (csrc/inverse_t.cu); its plain version, in the
-    (n, n, B) layout, on the CPU."""
-    _check_square(m)
-    if not kernels._on_card(m):
-        return _to_batch_leading(gj_inverse_T_plain(m.permute(1, 2, 0)))
-    _check_lanes()
-    b, n, _ = m.shape
-    work = _to_tiles(m)
-    inv = torch.empty_like(work)
-    fn = kernels._fn("inverse_t", "gj_launch", _GJ_ARGTYPES)
-    rc = fn(work.data_ptr(), inv.data_ptr(), n, b,
-            torch.cuda.current_stream(m.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"inverse_t_gj launch failed: CUDA error {rc}")
-    kernels.launches["batched_inverse_T"] += 1
-    return _from_tiles(inv, b)
+    """K6g: invert a batch of SPD matrices (B, n, n) with the Gauss-Jordan
+    kernel (csrc/inverse_t.cu); its plain version, in the (n, n, B)
+    layout, on the CPU."""
+    return _inverse_t(m, "batched_inverse_T", "gj_launch",
+                      gj_inverse_T_plain)
 
 
 # --- K6h-k: batch-last sweep ----------------------------------------------
@@ -193,24 +167,12 @@ def sweep_inverse_T_plain(mt: torch.Tensor,
 
 def batched_inverse_sweep_T(m: torch.Tensor,
                             sym_col: bool = False) -> torch.Tensor:
-    """K6h: invert a batch of SPD matrices (B, n, n) with the batch-last
-    sweep kernel (csrc/inverse_t.cu); ``sym_col`` reads the pivot column
-    off the pivot row. Its plain version, in the (n, n, B) layout, on
-    the CPU."""
-    _check_square(m)
-    if not kernels._on_card(m):
-        return _to_batch_leading(sweep_inverse_T_plain(m.permute(1, 2, 0),
-                                                       sym_col))
-    _check_lanes()
-    b, n, _ = m.shape
-    work = _to_tiles(m)
-    fn = kernels._fn("inverse_t", "sweep_launch", _SWEEP_ARGTYPES)
-    rc = fn(work.data_ptr(), n, b, int(bool(sym_col)),
-            torch.cuda.current_stream(m.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"inverse_t_sweep launch failed: CUDA error {rc}")
-    kernels.launches["batched_inverse_sweep_T"] += 1
-    return _from_tiles(work, b)
+    """K6h: invert a batch of SPD matrices (B, n, n) with the sweep
+    kernel (csrc/inverse_t.cu); ``sym_col`` reads the pivot column off
+    the pivot row. Its plain version, in the (n, n, B) layout, on the
+    CPU."""
+    return _inverse_t(m, "batched_inverse_sweep_T", "sweep_launch",
+                      sweep_inverse_T_plain, int(bool(sym_col)))
 
 
 def batched_inverse_sweep_T_chunked(m: torch.Tensor) -> torch.Tensor:

@@ -24,6 +24,8 @@ Routes, as ``batched_control_tick`` selects them:
     rho-refactored rescue rounds per tier. At ``kkt_reduced_nr`` >= the
     variable count (the bench's 'full' candidate, 128) it is the
     full-size solve with the same rescue and the round-robin polish;
+  - any other name raises ``ValueError`` listing ``KKT_BACKENDS`` (the
+    JAX package runs 'gj' for it);
 - ``admm_backend='pallas'`` (legacy): a materialized per-scenario A, the
   scaled KKT inverted by K1 (``use_pallas``) or ``torch.linalg.inv``,
   the ADMM in K4; no rescue;
@@ -532,7 +534,6 @@ def _dense_solve(cfg: A1Config, prob, scal, settings, *, use_pallas: bool,
         rho0=prob.rho0, scaling=scal, kkt_inv=minv)
 
 
-_UNPORTED = "is not ported: ROADMAP.md, 'The other batched routes'"
 # the full-size inverse of each per-tick-refactor route (``_gj_solve``)
 _KKT_INVERSES = {
     "gj": batched_inverse,
@@ -541,6 +542,7 @@ _KKT_INVERSES = {
     "sweep_t": retired.batched_inverse_sweep_T_masked,
     "gj_t": retired.batched_inverse_T,
 }
+KKT_BACKENDS = ("amortized", "reduced", "reduced_admm", *_KKT_INVERSES)
 
 
 def batched_control_tick(cfg: A1Config, params_b: RobotParams, cs_b, mem_b,
@@ -563,10 +565,9 @@ def batched_control_tick(cfg: A1Config, params_b: RobotParams, cs_b, mem_b,
     return stats too when asked."""
     if admm_backend not in ("pallas_shared", "pallas", "xla"):
         raise ValueError(f"unknown admm_backend={admm_backend!r}")
-    if admm_backend == "pallas_shared" and kkt_backend not in (
-            "amortized", "reduced", "reduced_admm", *_KKT_INVERSES):
-        raise NotImplementedError(f"kkt_backend={kkt_backend!r} "
-                                  + _UNPORTED)
+    if admm_backend == "pallas_shared" and kkt_backend not in KKT_BACKENDS:
+        raise ValueError(f"unknown kkt_backend={kkt_backend!r}; known: "
+                         + ", ".join(map(repr, KKT_BACKENDS)))
     assert cfg.mpc_solver_mode == "fixed"
     settings = qpx.QPSettings(rho=grf._MPC_RHO0, adaptive_rho=False)
 

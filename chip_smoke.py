@@ -7,9 +7,10 @@ NVIDIA card and check it.
 Phases, in order:
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: the nine CUDA sources from ``a1_qp_mpc_controller_tpu_torch/csrc``
-   with nvcc for ``sm_90a`` (one nvcc process each, all at once; ptxas
-   registers and spills logged), and K3's occupancy by CUDA's calculator;
+2. build: the eleven CUDA sources from
+   ``a1_qp_mpc_controller_tpu_torch/csrc`` with nvcc for ``sm_90a`` (one
+   nvcc process each, all at once; ptxas registers and spills logged by
+   kernel), and K3's occupancy by CUDA's calculator;
 3. the kernels against their plain PyTorch versions on the operands of a
    real B = 1024 trot tick, at every shape a driven route gives them:
    - K1 (Gauss-Jordan KKT inverse) at B = 40/48/80/96/128/160/192/1024
@@ -32,7 +33,8 @@ Phases, in order:
      'chol' route's inverse);
    - K6g (batch-last Gauss-Jordan) and the batch-last sweep kernel (K6j,
      shared by K6h, K6i and K6k; both pivot-column reads) at (1024, 120),
-     bit for bit;
+     bit for bit; then the three beside K6f (the batch-leading sweep in
+     shared memory) and ``torch.linalg.inv``, timed in turns;
    - K6a (Schur recursion, K3 at the base) against itself with K3's plain
      version at the base: the same NaN pattern, the finite entries within
      1e-5 of their scale; its finite share and ||MX - I||_max reported;
@@ -99,6 +101,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -707,11 +710,39 @@ def phase_kernels(port, device):
                        lambda x: r.batched_inverse_sweep_T(x, sym_col=True),
                        batch_last(r.sweep_inverse_T_plain, sym_col=True),
                        flops=sweep_flops, resid_tol=None))
+    out["k6_designs"] = inverse_designs(port, m)
     log("[3h] K6a spd_block_inverse (K3 base)")
     out["k6a"] = block_inverse_row(port, m)
     log("[3i] K6b-K6f vs plain, K6f vs the batch-last sweep")
     out.update(retired_rows(port, m))
     return out
+
+
+def inverse_designs(port, m, rounds: int = 2):
+    """K6g and the sweep (one block a matrix in registers) beside K6f (the
+    sweep in shared memory) and ``torch.linalg.inv`` on the same batch,
+    timed in turns within this call, ``rounds`` times; the mean ms of each
+    over the rounds, and whether each batch-last kernel ran faster than
+    both K6f and the library."""
+    import torch
+    r = port.kernels_retired
+    fns = {"K6g": r.batched_inverse_T,
+           "sweep (K6j)": r.batched_inverse_sweep_T_masked,
+           "sweep sym_col": lambda x: r.batched_inverse_sweep_T(
+               x, sym_col=True),
+           "K6f": r.batched_inverse_spd,
+           "torch.linalg.inv": torch.linalg.inv}
+    times = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            times[name].append(cuda_ms(lambda: fn(m), 20))
+    ms = {name: statistics.fmean(t) for name, t in times.items()}
+    faster = {name: ms[name] < ms["K6f"] and ms[name] < ms["torch.linalg.inv"]
+              for name in ("K6g", "sweep (K6j)", "sweep sym_col")}
+    log(f"  at {tuple(m.shape)}, in turns: " + ", ".join(
+        f"{name} {v:.4f} ms" for name, v in ms.items())
+        + f"; below K6f and torch.linalg.inv: {faster}")
+    return dict(ms=ms, below_k6f_and_library=faster)
 
 
 def retired_rows(port, m):
@@ -1528,7 +1559,8 @@ def main() -> int:
     log(f"  built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
     for name, text in port.kernels.build_log.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if any(key in line for key in ("Function properties",
+                                           "registers", "spill", "smem")):
                 log(f"  ptxas {name}: {line.strip()}")
     occupancy = {n: port.kernels.batched_inverse_small_occupancy(n)
                  for n in (64, 66)}
@@ -1611,6 +1643,7 @@ def main() -> int:
     kernels[2]["serves"] = {"K6a spd_block_inverse": dict(
         replaces=f"{RETIRED}:41", **rows["k6a"])}
     kernels[4]["hybrid"] = rows["hybrid"]
+    kernels[5]["designs_in_turns"] = rows["k6_designs"]
     kernels[6]["shared_by"] = {
         "K6h batched_inverse_sweep_T": f"{RETIRED}:902",
         "K6i batched_inverse_sweep_T_chunked": f"{RETIRED}:638",

@@ -175,19 +175,23 @@ def test_batched_tick_other_inverses_match_jax_gj(tick, kkt_backend):
 
 
 def test_unported_routes_raise(tick):
-    """A ``kkt_backend`` the port lacks raises naming ROADMAP.md; the
-    stand-QP branch of ``compute_grf`` runs the tick on ``gazebo_qp``
-    (its stance control type 0; tests/test_torch_stand.py holds it
-    against the JAX package)."""
+    """An unknown ``kkt_backend`` raises ``ValueError`` listing the known
+    ones (the JAX package would run 'gj' for it); the stand-QP branch of
+    ``compute_grf`` runs the tick on ``gazebo_qp`` (its stance control
+    type 0; tests/test_torch_stand.py holds it against the JAX
+    package)."""
     qp_cfg, _ = tcfg.load_profile("gazebo_qp", device=CPU)
     args = (tick["pb"], tick["cs"], tick["mem"], tick["sens"], tick["joy"],
             tick["dt"])
     _, _, tq = tctl.control_tick(qp_cfg, *args)
     assert bool(torch.isfinite(tq).all())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="'lu'") as err:
         tbatched.batched_control_tick(
             tick["cfg"], *args, admm_backend="pallas_shared",
             kkt_backend="lu")
+    for name in ("amortized", "reduced", "reduced_admm", "gj", "chol",
+                 "schur", "sweep_t", "gj_t"):
+        assert repr(name) in str(err.value)
 
 
 def test_plant_matches_jax(rng):

@@ -133,13 +133,15 @@ def test_k5_kernel_matches_plain_on_card(card, p):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [24, 120])
-def test_batch_last_kernels_match_plain_on_card(card, n):
+@pytest.mark.parametrize("b, n", [(37, 12), (37, 24), (37, 50), (37, 120),
+                                  (37, 136), (1, 120), (1, 136), (133, 120)])
+def test_batch_last_kernels_match_plain_on_card(card, b, n):
     """K6g and the sweep kernel (both pivot-column reads) against their
-    plain versions in the (n, n, B) layout, bit for bit, over a batch
-    that leaves the kernels' last tile of 8 scenarios partly empty; the
-    input is left as it was."""
-    m = t(_spd(37, n)).to(card)
+    plain versions in the (n, n, B) layout, bit for bit: every register
+    tile height (n = 12, 24, 50, 120: 1, 2, 4, 8 rows), the large-n path
+    (136), one matrix, and batches that are no multiple of anything (37,
+    and 133, one past the SM count); the input is left as it was."""
+    m = t(_spd(b, n)).to(card)
     keep = m.clone()
     mt = m.permute(1, 2, 0).contiguous()
     x = _counted("batched_inverse_T", retired.batched_inverse_T, m)
