@@ -30,7 +30,12 @@
 // operations against ~0.004 ms of bytes); negate at (120, 120, 1024) moves
 // 118 MB, 0.035 ms.
 //
-// Design: negate is a grid-stride elementwise pass. The loop bodies keep
+// Design: negate and fori_mask are one elementwise pass each (fori_mask's
+// n steps double each column j < n once, so its result is one pass over
+// the array): float4 loads and stores where m and o share their offset
+// from a 16-byte boundary, a scalar head and tail, a grid of 8 blocks an
+// SM by the SM count the device reports, and a grid-stride loop past it.
+// The other loop bodies keep
 // one lane's whole array in dynamic shared memory for all n steps (at most
 // (ni nj + 2 nj + ni) floats, 58.6 KB at 120 x 120: three blocks an SM)
 // and touch device memory once each way, so a block is one lane: S = 128
@@ -46,13 +51,17 @@
 // thin_transpose, slab_axis0) first copies them to shared memory, then a
 // barrier, the update, and a barrier before the next step. The steps
 // that touch one row or column with values no other thread writes
-// (fori_mask, dyn_read, dyn_store, carry_const) run without barriers.
+// (dyn_read, dyn_store, carry_const) run without barriers.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kBlocksPerSm = 8;      // elementwise: 2048 threads an SM
+constexpr int kUnroll = 4;           // elementwise: float4s a thread a pass
+constexpr int kMaxWaves = 8;         // elementwise: the grid's cap, in
+                                     // resident grids
 
 enum Body {
   kNegate = 0,
@@ -68,13 +77,120 @@ enum Body {
   kSlabAxis0 = 10,
 };
 
+// The elementwise bodies over the flat array: negate (o = -m) and
+// fori_mask (o = 2 m in the columns j < n, m elsewhere: its n steps double
+// each of those columns once; element e lies in column (e / S) mod nj).
+// The elements before the first 16-byte boundary (head) and after the
+// last whole float4 (tail) go one a thread; the rest as float4s, a block
+// taking kThreads U of them (U = kUnroll on large arrays, 1 on small
+// ones), each thread's U loads in flight before its stores. When m and o
+// sit at different offsets from a 16-byte boundary the launcher sets
+// head = total: every element goes alone. row4: the four elements of
+// each float4 lie in one column (S % 4 == 0, head 0).
+template <int B, int U>
 __global__ void __launch_bounds__(kThreads)
-negate_kernel(const float* __restrict__ m, float* __restrict__ o,
-              size_t total) {
-  for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < total; i += static_cast<size_t>(gridDim.x) * blockDim.x) {
-    o[i] = -m[i];
+elementwise_kernel(const float* __restrict__ m, float* __restrict__ o,
+                   unsigned total, unsigned head, unsigned s, unsigned nj,
+                   unsigned n, bool row4) {
+  const unsigned tid = blockIdx.x * kThreads + threadIdx.x;
+  const unsigned stride = gridDim.x * kThreads;
+  // fori_mask over every column or none needs no column index
+  const bool all = n >= nj, none = n == 0;
+  const auto scaled = [&](unsigned idx) {
+    return all || (!none && idx / s % nj < n);
+  };
+  const auto one = [&](float v, unsigned idx) {
+    if (B == kNegate) return -v;
+    return scaled(idx) ? __fmul_rn(v, 2.0f) : v;
+  };
+  const unsigned nvec = (total - head) / 4;
+  const unsigned tail = head + 4 * nvec;
+  for (unsigned i = tid; i < head; i += stride) o[i] = one(m[i], i);
+  for (unsigned i = tail + tid; i < total; i += stride) o[i] = one(m[i], i);
+  const float4* mv = reinterpret_cast<const float4*>(m + head);
+  float4* ov = reinterpret_cast<float4*>(o + head);
+  for (unsigned v0 = blockIdx.x * kThreads * U + threadIdx.x; v0 < nvec;
+       v0 += stride * U) {
+    float4 r[U];
+#pragma unroll
+    for (int k = 0; k < U; ++k) {
+      const unsigned v = v0 + k * kThreads;
+      if (v < nvec) r[k] = __ldg(mv + v);
+    }
+#pragma unroll
+    for (int k = 0; k < U; ++k) {
+      const unsigned v = v0 + k * kThreads;
+      if (v >= nvec) continue;
+      const unsigned e0 = head + 4 * v;
+      float4 w = r[k];
+      if (B == kNegate) {
+        w = make_float4(-w.x, -w.y, -w.z, -w.w);
+      } else if (row4) {
+        if (scaled(e0)) {
+          w = make_float4(__fmul_rn(w.x, 2.0f), __fmul_rn(w.y, 2.0f),
+                          __fmul_rn(w.z, 2.0f), __fmul_rn(w.w, 2.0f));
+        }
+      } else {
+        w = make_float4(one(w.x, e0), one(w.y, e0 + 1), one(w.z, e0 + 2),
+                        one(w.w, e0 + 3));
+      }
+      ov[v] = w;
+    }
   }
+}
+
+template <int B, int U>
+void launch_elementwise(const float* m, float* o, size_t total, size_t head,
+                        int nj, int s, int n, size_t blocks,
+                        cudaStream_t stream) {
+  elementwise_kernel<B, U><<<static_cast<unsigned>(blocks), kThreads, 0,
+                             stream>>>(
+      m, o, static_cast<unsigned>(total), static_cast<unsigned>(head),
+      static_cast<unsigned>(s), static_cast<unsigned>(nj),
+      static_cast<unsigned>(n),
+      head == 0 && s % 4 == 0);
+}
+
+// The grid: a block a kThreads U float4s (or the head's and tail's
+// elements, if more), at most kMaxWaves resident grids of the SM count
+// the device reports, past which the blocks stride over the rest. Arrays
+// of 2^31 elements or more are refused (32-bit indices).
+template <int B>
+int launch_flat(const float* m, float* o, int ni, int nj, int s, int n,
+                cudaStream_t stream) {
+  const size_t total = static_cast<size_t>(ni) * nj * s;
+  if (total == 0) return 0;
+  if (total >= (size_t{1} << 31)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t mo = reinterpret_cast<size_t>(m) & 15;
+  size_t head = total;
+  if (mo == (reinterpret_cast<size_t>(o) & 15)) {
+    head = ((16 - mo) & 15) / 4;
+    if (head > total) head = total;
+  }
+  const size_t nvec = (total - head) / 4;
+  const size_t resident = static_cast<size_t>(sms) * kBlocksPerSm;
+  const bool wide = nvec >= resident * kThreads * kUnroll;
+  const size_t per_block = static_cast<size_t>(kThreads)
+                           * (wide ? kUnroll : 1);
+  size_t blocks = (nvec + per_block - 1) / per_block;
+  const size_t loose = (head + 3 + kThreads - 1) / kThreads;
+  if (blocks < loose) blocks = loose;
+  if (blocks > resident * kMaxWaves) blocks = resident * kMaxWaves;
+  if (wide) {
+    launch_elementwise<B, kUnroll>(m, o, total, head, nj, s, n, blocks,
+                                   stream);
+  } else {
+    launch_elementwise<B, 1>(m, o, total, head, nj, s, n, blocks, stream);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 __device__ __forceinline__ float minus_scaled(float w, float v) {
@@ -102,11 +218,7 @@ probe_kernel(const float* __restrict__ m, float* __restrict__ o, int ni,
 
   float rc = 0.0f;                           // carry_const's r
   for (int k = 0; k < n; ++k) {
-    if (B == kForiMask) {
-      for (int i = t0; i < ni; i += ts) {
-        w[i * nj + k] = __fmul_rn(w[i * nj + k], 2.0f);
-      }
-    } else if (B == kDynRead) {
+    if (B == kDynRead) {
       for (int j = t0; j < nj; j += ts) {
         w[j] = mk[static_cast<size_t>(k * nj + j) * s];
       }
@@ -195,16 +307,8 @@ extern "C" int mosaic_probes_launch(int body, const float* m, float* o,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   switch (body) {
-    case kNegate: {
-      const size_t total = static_cast<size_t>(ni) * nj * s;
-      if (total == 0) return 0;
-      size_t blocks = (total + kThreads - 1) / kThreads;
-      if (blocks > 132 * 16) blocks = 132 * 16;
-      negate_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
-          m, o, total);
-      return static_cast<int>(cudaGetLastError());
-    }
-    case kForiMask: return launch_probe<kForiMask>(m, o, ni, nj, s, n, st);
+    case kNegate: return launch_flat<kNegate>(m, o, ni, nj, s, n, st);
+    case kForiMask: return launch_flat<kForiMask>(m, o, ni, nj, s, n, st);
     case kAxis1Reduce:
       return launch_probe<kAxis1Reduce>(m, o, ni, nj, s, n, st);
     case kAxis0Reduce:

@@ -58,7 +58,7 @@ _fns: dict[str, ctypes._CFuncPtr] = {}
 
 _P = ctypes.c_void_p
 _ARGTYPES = {
-    "fused_admm_shared": [_P] * 16 + [ctypes.c_int] * 4
+    "fused_admm_shared": [_P] * 17 + [ctypes.c_int] * 4
     + [ctypes.c_float] * 3 + [_P],
     "fused_admm": [_P] * 12 + [ctypes.c_int] * 4
     + [ctypes.c_float] * 3 + [_P],
@@ -281,11 +281,22 @@ def fused_admm_shared_plain(a0, a1, minv, mu, d, e, qs, ls, us, rho_vec,
     return x, y, z
 
 
+def fused_admm_shared_smem_bytes(n: int, m: int) -> int:
+    """Shared memory a block of ``csrc/fused_admm_shared.cu`` needs besides
+    its padded lists (``fixed_bytes`` there): the right-hand side padded
+    to the register tier's width (68 or 120 at n <= 120; past it minv's
+    n x n in shared memory too), d xt and nine row vectors."""
+    tier = next((t for t in (68, 120) if n <= t), 0)
+    rpad = tier or -(-n // 4) * 4
+    return 4 * (rpad + (0 if tier else n * n) + n + 9 * m)
+
+
 def fused_admm_shared(a0, a1, minv, mu, d, e, qs, ls, us, rho_vec, x0, y0,
                       z0, *, iters: int, sigma: float = 1e-6,
                       alpha: float = 1.6):
     """Batched fixed-iteration ADMM in the scaled space through the CUDA
-    kernel (csrc/fused_admm_shared.cu): a0/a1 (m, n) shared; minv
+    kernel (csrc/fused_admm_shared.cu): a0/a1 (m, n) shared, any values
+    (their nonzeros are packed on the card by a first launch); minv
     (B, n, n) symmetric scaled-KKT inverse; mu (B,); d, qs, x0 (B, n);
     e, ls, us, rho_vec, y0, z0 (B, m). Returns scaled (x, y, z). Plain
     version on the CPU."""
@@ -303,14 +314,19 @@ def fused_admm_shared(a0, a1, minv, mu, d, e, qs, ls, us, rho_vec, x0, y0,
             ("rho_vec", rho_vec, (b, m)), ("x0", x0, (b, n)),
             ("y0", y0, (b, m)), ("z0", z0, (b, m))):
         _check(name, t, shape, dev)
-    if (n * n + 5 * n + 11 * m) * 4 > MAX_SMEM_BYTES:
+    if fused_admm_shared_smem_bytes(n, m) > MAX_SMEM_BYTES:
         raise ValueError(f"fused_admm_shared: n={n}, m={m} exceed shared "
                          "memory")
     x = torch.empty_like(qs)
     y = torch.empty_like(ls)
     z = torch.empty_like(ls)
+    # the pack launch's output (struct Packed): 4 n m strided and 4 nl
+    # padded (index, value) pairs and nl counts, nl = 2 (n + m) lists
+    nl = 2 * (n + m)
+    scratch = torch.empty(8 * n * m + 9 * nl, dtype=torch.float32,
+                          device=dev)
     ptrs = [t.data_ptr() for t in (a0, a1, minv, mu, d, e, qs, ls, us,
-                                   rho_vec, x0, y0, z0, x, y, z)]
+                                   rho_vec, x0, y0, z0, x, y, z, scratch)]
     rc = _fn("fused_admm_shared")(
         *ptrs, b, n, m, int(iters), float(sigma), float(alpha),
         float(1.0 - alpha), torch.cuda.current_stream(dev).cuda_stream)

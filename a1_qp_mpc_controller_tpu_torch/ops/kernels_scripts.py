@@ -42,6 +42,8 @@ BODIES = ("negate", "fori_mask", "axis1_reduce", "axis0_reduce", "dyn_read",
 _ROW_STEPS = ("axis0_reduce", "dyn_read", "dyn_store", "carry_vec",
               "slab_axis0", "rank1", "thin_transpose")
 _COL_STEPS = ("fori_mask", "axis1_reduce", "rank1", "thin_transpose")
+# the bodies that run as one elementwise pass (no array in shared memory)
+_ELEMENTWISE = ("negate", "fori_mask")
 
 
 # --- S1: the fused ADMM's micro-variants ---------------------------------
@@ -121,7 +123,7 @@ def _check_steps(body: str, shape, n: int) -> None:
         raise ValueError(f"{body}: {n} steps over a ({ni}, {nj}) array")
     if body == "thin_transpose" and ni != nj:
         raise ValueError(f"thin_transpose needs ni = nj, got ({ni}, {nj})")
-    if body != "negate" and (ni * nj + 2 * nj + ni) * 4 > \
+    if body not in _ELEMENTWISE and (ni * nj + 2 * nj + ni) * 4 > \
             kernels.MAX_SMEM_BYTES:
         raise ValueError(f"{body}: a ({ni}, {nj}) array exceeds shared "
                          "memory")

@@ -16,10 +16,12 @@ Phases, in order:
    - K1 (Gauss-Jordan KKT inverse) at B = 40/48/80/96/128/160/192/1024
      (rescue rounds, capacity refresh, the big bucket, refresh-all), bit
      for bit;
-   - K2 (fused shared-basis ADMM) at n = 120, m = 200 (B = 1024 and the
-     big bucket's 160 with 25 iterations; the 150-iteration pools of
-     192/96/80/48/40) and at the reduced tier's n = 66, m = 110 (B = 1024
-     with 25 iterations, pools of 192 and 48 with 150);
+   - K2 (fused shared-basis ADMM: a pack launch of the shared basis's
+     nonzeros, then the iterations) at n = 120, m = 200 (B = 1024 and
+     the big bucket's 160 with 25 iterations; B = 1024 and the
+     150-iteration pools of 192/96/80/48/40 with 150) and at the reduced
+     tier's n = 66, m = 110 (B = 1024 with 25 iterations, pools of 192
+     and 48 with 150);
    - K3 (Gauss-Jordan inverse, small n) at (1024, 66), (192, 66),
      (48, 66) and (1024, 64), bit for bit;
    - K4 (fused ADMM, per-scenario A) at B = 1024, n = 120, m = 200, 25
@@ -81,7 +83,11 @@ Phases, in order:
    negate over (120, 120, 1024), the masked sweeps K6j/K6k on the
    reference KKT batch, ||I - XM||_max <= 1e-3); then S1's and S2's rows
    from those runs, each S2 probe also held bit for bit on seeded random
-   inputs, beside its plain version's and library call's times;
+   inputs, beside its plain version's time; the two bodies with a
+   library call (negate; fori_mask over every column, ``m * 2``) timed
+   in turns with that call on the same input at (8, 8, 128),
+   (120, 120, 128) and (120, 120, 1024), the ladder's own time kept
+   beside;
 6. the stand-QP path on ``gazebo_qp`` in fixed mode: B = 4096 scenarios
    with staggered gait phases through ``batched_stand_control_tick``
    (rescue pool 128 x 400; 200 stand and 40 trot ticks untimed, 100
@@ -151,6 +157,8 @@ K6S = "batched_inverse_sweep_T"
 K6B, K6C = "batched_inverse_inplace", "batched_inverse_combined"
 K6D, K6E = "batched_inverse_rank", "batched_inverse_rank_masked"
 K6F = "batched_inverse_spd"
+# K2's CUDA kernels, as the profiler names them (csrc/fused_admm_shared.cu)
+K2_KERNELS = ("fused_admm_shared_kernel", "pack_basis_kernel")
 # the kernels the component profile times (runtime/components.py)
 PROFILE_KERNELS = {K1, K2, K4, K6B, K6C, K6D, K6E, K6F, K6G, K6S}
 # route: (tick keyword arguments, untimed ticks, timed ticks, the kernels
@@ -679,9 +687,9 @@ def phase_kernels(port, device):
         port, "K2", ops, shapes, k.fused_admm_shared,
         k.fused_admm_shared_plain, K2_REL_TOL, k2_flops, k2_bytes,
         shared=("a0", "a1"))
-    out[K2] = (run_k2(ops_full, ((BATCH, 25), (160, 25), (192, 150),
-                                 (96, 150), (80, 150), (48, 150),
-                                 (40, 150)))
+    out[K2] = (run_k2(ops_full, ((BATCH, 25), (160, 25), (BATCH, 150),
+                                 (192, 150), (96, 150), (80, 150),
+                                 (48, 150), (40, 150)))
                + run_k2(ops_r, ((BATCH, 25), (192, 150), (48, 150))))
     log("[3d] K4 fused_admm vs plain")
     ops_l = tick["ops_legacy"](k.batched_inverse(tick["m_dense"]))
@@ -1033,8 +1041,19 @@ def profile_ticks(port, route, step, carry, ticks: int = 5):
         f"kernel launches/tick")
     for key, ms, count in rows[:8]:
         log(f"    {ms / ticks:9.3f} ms/tick  x{count / ticks:6.1f}  {key[:90]}")
+    k2 = {}
+    for key, ms, count in rows:
+        for name in K2_KERNELS:
+            if name in key:
+                k_ms, k_count = k2.get(name, (0.0, 0.0))
+                k2[name] = (k_ms + ms / ticks, k_count + count / ticks)
+    for name, (ms, count) in k2.items():
+        log(f"    K2 {name}: {ms:.4f} ms/tick x{count:.1f}")
     return dict(wall_ms=wall_ms / ticks, kernel_ms=busy / ticks,
                 busy_share=busy / wall_ms, launches=launches,
+                k2_ms=sum(ms for ms, _ in k2.values()),
+                k2_launches=sum(count for _, count in k2.values()),
+                k2_kernels=k2,
                 top=[(key[:60], ms / ticks) for key, ms, _ in rows[:4]])
 
 
@@ -1190,14 +1209,60 @@ def s2_library(body: str, m, n: int):
     return None
 
 
+# the elementwise bodies' shapes: the ladders' two and the grid negate's
+S2_TURN_SHAPES = ((8, 8, 128), (120, 120, 128), (120, 120, 1024))
+S2_LIBRARY_LIMIT = 1.05   # a body's time over its library call's, in turns
+
+
+def s2_in_turns(port, device, rounds: int = 2):
+    """Each S2 body that has a library call (negate, and fori_mask over
+    every column) against that call on the same seeded input, at every
+    shape of ``S2_TURN_SHAPES``: bit for bit against its plain version,
+    then the kernel and the call timed in turns (kernel, call, call,
+    kernel, ``rounds`` times), each by ``cuda_ms``. Returns
+    {(body, shape): dict(ms, lib_ms, ratio)}; a ratio above
+    S2_LIBRARY_LIMIT is logged, not raised."""
+    import torch
+    ks = port.kernels_scripts
+    g = torch.Generator().manual_seed(1)
+    out = {}
+    for shape in S2_TURN_SHAPES:
+        m = torch.randn(shape, generator=g).to(device)
+        for body in ("negate", "fori_mask"):
+            n = shape[1] if body == "fori_mask" else 0
+            x = ks.mosaic_probe(body, m, n)
+            torch.cuda.synchronize()
+            if not torch.equal(x, ks.mosaic_probe_plain(body, m, n)):
+                raise AssertionError(f"S2 {body} {shape} differs from its "
+                                     "plain version")
+            fns = {"kernel": lambda: ks.mosaic_probe(body, m, n),
+                   "library": s2_library(body, m, n)}
+            times = {key: [] for key in fns}
+            for _ in range(rounds):
+                for key in ("kernel", "library", "library", "kernel"):
+                    times[key].append(cuda_ms(fns[key], 20))
+            ms, lib_ms = (statistics.fmean(times[key])
+                          for key in ("kernel", "library"))
+            out[(body, tuple(shape))] = dict(ms=ms, lib_ms=lib_ms,
+                                             ratio=ms / lib_ms)
+            over = "" if ms / lib_ms <= S2_LIBRARY_LIMIT else ", over"
+            log(f"  S2 {body} {shape} in turns: kernel {ms:.4f} ms, "
+                f"library {lib_ms:.4f} ms, ratio {ms / lib_ms:.3f} (limit "
+                f"{S2_LIBRARY_LIMIT}{over}); bit-equal True")
+    return out
+
+
 def s2_rows(port, device, scripts):
     """S2's rows: every probe of the three ladders at its shape, its time
     from the ladder's run in ``phase_scripts``; here on seeded random
     inputs (ones hide transposes) bit for bit against its plain version,
     the plain version's and the library call's times, the bound (the
-    array read and written once, or its operations)."""
+    array read and written once, or its operations). Where a body has a
+    library call, its ``ms`` and ``lib_ms`` are the pair timed in turns
+    (``s2_in_turns``), the ladder's own time kept as ``ladder_ms``."""
     import torch
     ks = port.kernels_scripts
+    turns = s2_in_turns(port, device)
     g = torch.Generator().manual_seed(0)
     ladders = (("probe_mosaic", port.probe_mosaic.LADDER),
                ("probe_mosaic2", port.probe_mosaic2.LADDER),
@@ -1218,21 +1283,26 @@ def s2_rows(port, device, scripts):
             ref = ks.mosaic_probe_plain(body, m, n)
             equal = bool(torch.equal(x, ref))
             err = float((x - ref).abs().max())
-            ms = timed[name]
+            ms = ladder_ms = timed[name]
             plain_ms = cuda_ms(lambda: ks.mosaic_probe_plain(body, m, n), 3)
-            lib = s2_library(body, m, n)
-            lib_ms = None if lib is None else cuda_ms(lib, 20)
+            lib_ms = None
+            if s2_library(body, m, n) is not None:
+                pair = turns[(body, tuple(shape))]
+                ms, lib_ms = pair["ms"], pair["lib_ms"]
             bnd, by = bound_ms(s2_flops(body, shape, n), 2 * m.numel() * 4)
             log(f"  S2 {ladder}: {name} ({body}, {n} steps): bit-equal "
                 f"{equal} (max |kernel-plain| {err:.3e}); "
-                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
-                + (f", library {lib_ms:.4f} ms" if lib_ms is not None
-                   else "") + f", bound {bnd:.4f} ms ({by})")
+                f"kernel {ms:.4f} ms"
+                + (f" (ladder {ladder_ms:.4f})" if lib_ms is not None
+                   else "") + f", plain {plain_ms:.4f} ms"
+                + (f", library {lib_ms:.4f} ms in turns"
+                   if lib_ms is not None else "")
+                + f", bound {bnd:.4f} ms ({by})")
             if not equal:
                 raise AssertionError(f"S2 {name} differs from its plain "
                                      f"version: {err}")
             rows.append(dict(probe=name, body=body, shape=list(shape),
-                             steps=n, err=err, ms=ms,
+                             steps=n, err=err, ms=ms, ladder_ms=ladder_ms,
                              plain_ms=plain_ms, lib_ms=lib_ms, bound_ms=bnd,
                              bound_by=by))
     return out

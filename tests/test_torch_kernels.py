@@ -121,6 +121,29 @@ def test_k2_plain_matches_pallas_interpret(jax_tick, rng):
         assert err <= 1e-4, (name, err)
 
 
+def test_k2_packed_model_matches_pallas_interpret(jax_tick, rng):
+    """The model of the packed kernel's arithmetic
+    (``tests/test_torch_admm_packing.py``: the A-products from the packed
+    nonzero lists, the matvec an ascending chain) against the Pallas
+    kernel in interpret mode, on the operands and warm start of the test
+    above, at its limit."""
+    import jax.numpy as jnp
+
+    from a1_qp_mpc_controller_tpu.ops.pallas_kernels import fused_admm_shared
+
+    from test_torch_admm_packing import kernel_model
+
+    x0, y0, z0 = _warm_start(jax_tick, rng)
+    ops = [jax_tick[k] for k in K2_ARGS] + [x0, y0, z0]
+    ref = fused_admm_shared(*[jnp.asarray(a) for a in ops], iters=25,
+                            sigma=1e-6, alpha=1.6, block=B, interpret=True)
+    out = kernel_model(*[t(a) for a in ops], iters=25)
+    for name, o, r in zip("xyz", out, ref):
+        r = np.asarray(r)
+        err = np.abs(o.numpy() - r).max() / np.abs(r).max()
+        assert err <= 1e-4, (name, err)
+
+
 def _port_tick(device, b=8):
     """Scaled KKT matrices and ADMM operands of one real tick, built by
     the port alone (no JAX), on ``device``."""
@@ -200,3 +223,70 @@ def test_k2_kernel_matches_plain_on_card(card):
     for name, o, r in zip("xyz", out, ref):
         err = float((o - r).abs().max() / r.abs().max())
         assert err <= 1e-4, (name, err)
+
+
+def _k2_operands(b, n_blk, kind, device, seed=0):
+    """K2's operands at n = 3 n_blk, m = 5 n_blk: the friction basis
+    ('basis'), the basis with a second nonzero in a row of each block
+    ('wide': every list as short as the basis's, but not within its
+    widths) or dense random A0/A1 ('dense') of its shape, and a
+    consistent scaled QP (minv the
+    inverse of P + sigma I + A_s' diag(rho) A_s, in float64), so that 150
+    iterations converge rather than amplify rounding. The bounds are
+    tight enough that rows are active even at B = 1: where none is, y
+    falls to the rounding floor of y + rho (zp - z) and holds no digit
+    that two summation orders share."""
+    from a1_qp_mpc_controller_tpu_torch.models import srb
+
+    rng = np.random.default_rng(seed)
+    a0, a1 = srb.friction_constraint_basis_nblk(n_blk, torch.float64, "cpu")
+    m, n = a0.shape
+    if kind == "wide":
+        a0[4::5, 0::3] += 0.5 * torch.eye(n_blk, dtype=torch.float64)
+    elif kind == "dense":
+        a0, a1 = (torch.tensor(0.3 * rng.standard_normal((m, n)))
+                  for _ in range(2))
+    g = lambda *s: torch.tensor(rng.standard_normal(s))
+    mu = 0.4 + 0.4 * torch.tensor(rng.random(b))
+    d, e = 0.5 + g(b, n).abs(), 0.5 + g(b, m).abs()
+    rho = 0.1 + torch.tensor(rng.random((b, m)))
+    q = g(b, n, n)
+    a_s = e[:, :, None] * (a0 + mu[:, None, None] * a1) * d[:, None, :]
+    kkt = (q @ q.transpose(1, 2) / n + torch.eye(n) * (1.0 + 1e-6)
+           + a_s.transpose(1, 2) @ (rho[:, :, None] * a_s))
+    ops = dict(a0=a0, a1=a1, minv=torch.linalg.inv(kkt), mu=mu, d=d, e=e,
+               qs=g(b, n), ls=-0.1 - 0.2 * g(b, m).abs(),
+               us=0.1 + 0.2 * g(b, m).abs(),
+               rho_vec=rho, x0=0.1 * g(b, n), y0=0.01 * g(b, m),
+               z0=0.1 * g(b, m))
+    return {k: v.float().contiguous().to(device) for k, v in ops.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 37, 133, 1024])
+@pytest.mark.parametrize("kind", ["basis", "wide", "dense"])
+@pytest.mark.parametrize("n_blk", [44, 40, 22, 10, 4],
+                         ids=["n132", "n120", "n66", "n30", "n12"])
+def test_k2_kernel_matches_plain_on_shapes(card, n_blk, kind, b):
+    """The packed kernel against its plain version at 0, 1, 25 and 150
+    iterations, at the full and reduced widths, two small ones (the
+    68-wide register tier) and one past 120 (minv in shared memory), on
+    each way it reads the lists: the friction basis (its padded slots in
+    shared memory) and the wide basis and dense random A0/A1 (the
+    strided lists in device memory): K2's limit, 1e-4 of each output's
+    scale; 0 iterations return the warm start as it is; one launch
+    counted a call."""
+    ops = _k2_operands(b, n_blk, kind, card)
+    for iters in (0, 1, 25, 150):
+        before = kernels.launches["fused_admm_shared"]
+        out = kernels.fused_admm_shared(**ops, iters=iters)
+        torch.cuda.synchronize()
+        assert kernels.launches["fused_admm_shared"] == before + 1
+        ref = kernels.fused_admm_shared_plain(**ops, iters=iters,
+                                              sigma=1e-6, alpha=1.6)
+        for name, o, r in zip("xyz", out, ref):
+            assert bool(torch.isfinite(o).all()), (name, iters)
+            if iters == 0:
+                assert torch.equal(o, r), name
+            err = float((o - r).abs().max() / r.abs().max())
+            assert err <= 1e-4, (name, iters, err)

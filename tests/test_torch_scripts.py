@@ -251,3 +251,32 @@ def test_probe_kernels_match_plain_on_card(card, case):
     torch.cuda.synchronize()
     assert kernels.launches["mosaic_probes"] == before + 1
     assert torch.equal(out, ks.mosaic_probe_plain(body, m, n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 8, 128), (5, 7, 9)])
+def test_fori_mask_kernel_bit_equal_at_every_step_count(card, shape):
+    """The elementwise fori_mask at n = 0, 3 and nj columns doubled, on a
+    shape whose float4s share a column and on one whose do not."""
+    m = t(np.random.default_rng(13).standard_normal(shape).astype(
+        np.float32)).to(card)
+    for n in (0, 3, shape[1]):
+        out = ks.mosaic_probe("fori_mask", m, n)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ks.mosaic_probe_plain("fori_mask", m, n)), n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1, 3])
+def test_negate_kernel_bit_equal_at_odd_totals_and_offsets(card, offset):
+    """The vectorised negate on an odd total (5 x 7 x 9), and on a view
+    that starts ``offset`` floats into its storage (no longer 16-byte
+    aligned with its output), bit for bit."""
+    flat = t(np.random.default_rng(14).standard_normal(315 + 3).astype(
+        np.float32)).to(card)
+    m = flat[offset:offset + 315].view(5, 7, 9)
+    for body in ("negate", "fori_mask"):
+        out = ks.mosaic_probe(body, m, 4 if body == "fori_mask" else 0)
+        torch.cuda.synchronize()
+        ref = ks.mosaic_probe_plain(body, m, 4 if body == "fori_mask" else 0)
+        assert torch.equal(out, ref), body
