@@ -3,7 +3,7 @@
 //
 // Replaces the TPU kernel a1_qp_mpc_controller_tpu/ops/pallas_kernels.py
 // :126 batched_inverse_small (body _gj_inverse_kernel, :41): the same
-// lock-step pivot sequence as K1 (csrc/gj_inverse.cu), with the
+// lock-step pivot sequence as K1 (csrc/inverse_t.cu), with the
 // "diag - 1" elimination factor on the pivot row, so that the rank-1
 // update scales the pivot row in place and both versions round alike.
 // The TPU version pads rows to 8 sublanes and columns to 128 lanes; this

@@ -29,8 +29,7 @@ import torch
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parents[2] / "build" / "kernels"
-_SOURCES = {"gj_inverse": "gj_inverse.cu",
-            "gj_inverse_small": "gj_inverse_small.cu",
+_SOURCES = {"gj_inverse_small": "gj_inverse_small.cu",
             "chol_linv": "chol_linv.cu",
             "fused_admm_shared": "fused_admm_shared.cu",
             "fused_admm": "fused_admm.cu",
@@ -43,7 +42,7 @@ _SOURCES = {"gj_inverse": "gj_inverse.cu",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 MAX_SMEM_BYTES = 232448     # per-block dynamic shared memory on Hopper
-GJ_N_MAX = 169              # batched_inverse's largest n: (2n^2 + 3n) floats
+T_N_MAX = MAX_SMEM_BYTES // 16  # csrc/inverse_t.cu: 4n floats past n = 128
 SMALL_N_MAX = 128           # batched_inverse_small's largest n
 CHOL_P_MAX = 128            # batched_chol_linv's largest panel: 3 p^2 floats
 
@@ -53,6 +52,9 @@ launches = {"batched_inverse": 0, "batched_inverse_small": 0,
             "batched_inverse_inplace": 0, "batched_inverse_combined": 0,
             "batched_inverse_rank": 0, "batched_inverse_rank_masked": 0,
             "batched_inverse_spd": 0, "micro_admm": 0, "mosaic_probes": 0}
+# K4's last launch on the card: (B,) int32, 1 where a block ran the dense
+# order because its A did not fit the list slots
+paths: dict[str, torch.Tensor] = {}
 build_log: dict[str, str] = {}
 _fns: dict[str, ctypes._CFuncPtr] = {}
 
@@ -60,7 +62,7 @@ _P = ctypes.c_void_p
 _ARGTYPES = {
     "fused_admm_shared": [_P] * 17 + [ctypes.c_int] * 4
     + [ctypes.c_float] * 3 + [_P],
-    "fused_admm": [_P] * 12 + [ctypes.c_int] * 4
+    "fused_admm": [_P] * 13 + [ctypes.c_int] * 4
     + [ctypes.c_float] * 3 + [_P],
 }
 
@@ -186,10 +188,11 @@ def batched_inverse_plain(m: torch.Tensor) -> torch.Tensor:
 
 def batched_inverse(m: torch.Tensor) -> torch.Tensor:
     """Inverse of a batch of SPD matrices (B, n, n) through the CUDA
-    Gauss-Jordan kernel (csrc/gj_inverse.cu), n <= 169 (M, its inverse
-    and three n-vectors in shared memory); plain version on the CPU."""
-    return _inverse(m, "batched_inverse", "gj_inverse",
-                    batched_inverse_plain, GJ_N_MAX)
+    Gauss-Jordan kernel (csrc/inverse_t.cu, its "diag - 1" rule set: the
+    matrix in registers for n <= 128, in device memory past it),
+    n <= 14,528; plain version on the CPU."""
+    return _inverse(m, "batched_inverse", "inverse_t",
+                    batched_inverse_plain, T_N_MAX, symbol="k1_launch")
 
 
 def batched_inverse_small_plain(m: torch.Tensor) -> torch.Tensor:
@@ -362,13 +365,27 @@ def fused_admm_plain(minv, a_s, qs, ls, us, rho_vec, x0, y0, z0, *,
     return x, y, z
 
 
+def fused_admm_smem_bytes(n: int, m: int) -> int:
+    """Shared memory a block of ``csrc/fused_admm.cu`` needs without its
+    nonzero lists (``Layout`` there): the right-hand side (padded to 128
+    at n <= 128; past it minv's n x n in shared memory too), xt with its
+    +0 sentinel, (x, q) a column and (y, z, l, u, rho, w) a row, one more
+    row for the sentinel; each part padded to 4 floats."""
+    r4 = lambda v: -(-v // 4) * 4
+    reg = n <= 128
+    return 4 * ((0 if reg else r4(n * n)) + (128 if reg else r4(n))
+                + r4(n + 1) + r4(2 * n) + 6 * (m + 1))
+
+
 def fused_admm(minv, a_s, qs, ls, us, rho_vec, x0, y0, z0, *, iters: int,
                sigma: float = 1e-6, alpha: float = 1.6):
     """Batched fixed-iteration ADMM in the scaled space through the CUDA
     kernel (csrc/fused_admm.cu): minv (B, n, n) scaled-KKT inverse (not
-    assumed symmetric); a_s (B, m, n) scaled constraint matrix; qs, x0
-    (B, n); ls, us, rho_vec, y0, z0 (B, m). Returns scaled (x, y, z).
-    Plain version on the CPU."""
+    assumed symmetric); a_s (B, m, n) scaled constraint matrix, any values
+    (each block packs its nonzeros on the card; one whose A does not fit
+    the friction pyramid's list widths runs the dense order, and says so
+    in ``paths["fused_admm"]``); qs, x0 (B, n); ls, us, rho_vec, y0, z0
+    (B, m). Returns scaled (x, y, z). Plain version on the CPU."""
     b, n = qs.shape
     m = ls.shape[1]
     if not _on_card(qs):
@@ -381,17 +398,19 @@ def fused_admm(minv, a_s, qs, ls, us, rho_vec, x0, y0, z0, *, iters: int,
             ("rho_vec", rho_vec, (b, m)), ("x0", x0, (b, n)),
             ("y0", y0, (b, m)), ("z0", z0, (b, m))):
         _check(name, t, shape, dev)
-    if (n * n + m * n + 4 * n + 7 * m) * 4 > MAX_SMEM_BYTES:
+    if fused_admm_smem_bytes(n, m) > MAX_SMEM_BYTES:
         raise ValueError(f"fused_admm: n={n}, m={m} exceed shared memory")
     x = torch.empty_like(qs)
     y = torch.empty_like(ls)
     z = torch.empty_like(ls)
+    dense = torch.empty(b, dtype=torch.int32, device=dev)
     ptrs = [t.data_ptr() for t in (minv, a_s, qs, ls, us, rho_vec, x0, y0,
-                                   z0, x, y, z)]
+                                   z0, x, y, z, dense)]
     rc = _fn("fused_admm")(
         *ptrs, b, n, m, int(iters), float(sigma), float(alpha),
         float(1.0 - alpha), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_admm launch failed: CUDA error {rc}")
     launches["fused_admm"] += 1
+    paths["fused_admm"] = dense
     return x, y, z

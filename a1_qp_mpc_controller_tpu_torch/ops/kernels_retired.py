@@ -18,8 +18,8 @@ variants that the component profile (``runtime/components.py``) times.
 - K6b ``batched_inverse_inplace``: Gauss-Jordan in one working array
   (``csrc/gj_inplace.cu``).
 - K6c ``batched_inverse_combined``: Gauss-Jordan on [M | I], the pivot row
-  written by a select (K1's source, ``csrc/gj_inverse.cu``, with a
-  compile-time flag; the arithmetic of K6g in the batch-leading layout).
+  written by a select: the arithmetic of K6g in the batch-leading layout,
+  so K6g's kernel (``csrc/inverse_t.cu``) on the (B, n, n) input.
 - K6d ``batched_inverse_rank`` and K6e ``batched_inverse_rank_masked``:
   rank-r panel Gauss-Jordan (``csrc/gj_rank.cu``, r = 2, 4 or 8). They
   keep the TPU versions' identity padding of n to a multiple of r: those
@@ -80,8 +80,6 @@ def spd_block_inverse(m: torch.Tensor, base: int = 32) -> torch.Tensor:
 
 # --- the batch-last entry points ----------------------------------------
 
-T_N_MAX = kernels.MAX_SMEM_BYTES // 16  # csrc/inverse_t.cu past n = 128
-
 
 def _to_batch_leading(mt: torch.Tensor) -> torch.Tensor:
     return mt.permute(2, 0, 1).contiguous()
@@ -104,8 +102,8 @@ def _inverse_t(m: torch.Tensor, name: str, symbol: str, plain,
     _check_square(m)
     if not kernels._on_card(m):
         return batch_leading(m)
-    return kernels._inverse(m, name, "inverse_t", batch_leading, T_N_MAX,
-                            symbol=symbol, extra=extra)
+    return kernels._inverse(m, name, "inverse_t", batch_leading,
+                            kernels.T_N_MAX, symbol=symbol, extra=extra)
 
 
 # --- K6g: batch-last Gauss-Jordan -----------------------------------------
@@ -235,12 +233,12 @@ def batched_inverse_combined_plain(m: torch.Tensor) -> torch.Tensor:
 
 
 def batched_inverse_combined(m: torch.Tensor) -> torch.Tensor:
-    """K6c: invert a batch of SPD matrices (B, n, n) with K1's kernel
-    built to write the pivot row by a select (csrc/gj_inverse.cu),
-    n <= 169; plain version on the CPU."""
-    return kernels._inverse(m, "batched_inverse_combined", "gj_inverse",
-                            batched_inverse_combined_plain,
-                            kernels.GJ_N_MAX, symbol="combined_launch")
+    """K6c: invert a batch of SPD matrices (B, n, n) with K6g's
+    Gauss-Jordan kernel (csrc/inverse_t.cu), which shares its arithmetic;
+    plain version on the CPU."""
+    return kernels._inverse(m, "batched_inverse_combined", "inverse_t",
+                            batched_inverse_combined_plain, kernels.T_N_MAX,
+                            symbol="gj_launch")
 
 
 def _rank_padded(m: torch.Tensor, rank: int) -> torch.Tensor:

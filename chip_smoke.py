@@ -7,15 +7,15 @@ NVIDIA card and check it.
 Phases, in order:
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: the eleven CUDA sources from
+2. build: the ten CUDA sources from
    ``a1_qp_mpc_controller_tpu_torch/csrc`` with nvcc for ``sm_90a`` (one
    nvcc process each, all at once; ptxas registers and spills logged by
    kernel), and K3's occupancy by CUDA's calculator;
 3. the kernels against their plain PyTorch versions on the operands of a
    real B = 1024 trot tick, at every shape a driven route gives them:
-   - K1 (Gauss-Jordan KKT inverse) at B = 40/48/80/96/128/160/192/1024
-     (rescue rounds, capacity refresh, the big bucket, refresh-all), bit
-     for bit;
+   - K1 (Gauss-Jordan KKT inverse, the "diag - 1" rule set of
+     ``csrc/inverse_t.cu``) at B = 40/48/80/96/128/160/192/1024 (rescue
+     rounds, capacity refresh, the big bucket, refresh-all), bit for bit;
    - K2 (fused shared-basis ADMM: a pack launch of the shared basis's
      nonzeros, then the iterations) at n = 120, m = 200 (B = 1024 and
      the big bucket's 160 with 25 iterations; B = 1024 and the
@@ -25,7 +25,9 @@ Phases, in order:
    - K3 (Gauss-Jordan inverse, small n) at (1024, 66), (192, 66),
      (48, 66) and (1024, 64), bit for bit;
    - K4 (fused ADMM, per-scenario A) at B = 1024, n = 120, m = 200, 25
-     iterations;
+     iterations, and at B = 64 with a dense random A, which overflows the
+     kernel's nonzero lists and runs the dense order; the blocks that ran
+     it counted per row;
    - exact float32 products (TF32 off, a panel product against float64);
    - K5 (panel Cholesky inverse) at (1024, 30, 30) on the first diagonal
      panel of the full-size KKT batch and on the last, trailing one as
@@ -70,8 +72,9 @@ Phases, in order:
    and on the CPU (plain versions), which must agree in their torques,
    forces, contacts and carried controller state: on 'gj', 'amortized',
    'full', 'chol', 'sweep_t', 'gj_t', 'xla' (with ``torch.linalg.inv``
-   and with K1) and ``control_tick`` in both modes from one state, on
-   the reduced tier tick by tick from the card's state;
+   and with K1) and ``control_tick`` in both modes from one state, on the
+   reduced tier and the legacy 'pallas' route (K1 and K4) tick by tick
+   from the card's state;
 5. the scripts' paths and kernels: the port's scripts as a user runs
    them, the launch counts set to 0 before each and read after:
    ``micro_admm`` (S1, four variants x unroll 1 and 4 at B = 1024, each
@@ -157,8 +160,12 @@ K6S = "batched_inverse_sweep_T"
 K6B, K6C = "batched_inverse_inplace", "batched_inverse_combined"
 K6D, K6E = "batched_inverse_rank", "batched_inverse_rank_masked"
 K6F = "batched_inverse_spd"
-# K2's CUDA kernels, as the profiler names them (csrc/fused_admm_shared.cu)
-K2_KERNELS = ("fused_admm_shared_kernel", "pack_basis_kernel")
+# the CUDA kernels each route's profile reports by name: label -> a part
+# of the profiler's name: K2's two (csrc/fused_admm_shared.cu), K1 (the
+# "diag - 1" rule set, Rule::kK1, of csrc/inverse_t.cu's kernels) and K4
+# (csrc/fused_admm.cu)
+NAMED_KERNELS = {"K1": "Rule)2>", "K2": "fused_admm_shared_kernel",
+                 "K2 pack": "pack_basis_kernel", "K4": "fused_admm_kernel<"}
 # the kernels the component profile times (runtime/components.py)
 PROFILE_KERNELS = {K1, K2, K4, K6B, K6C, K6D, K6E, K6F, K6G, K6S}
 # route: (tick keyword arguments, untimed ticks, timed ticks, the kernels
@@ -197,12 +204,17 @@ UNHELD_ALIVE = ("schur",)
 # accepted by comparing such residuals, so over free-running ticks the
 # two devices part by more than the limits (PERF.md, PR 2); the carried
 # state each tick writes is compared too, so a fault in it still shows.
+# So does the legacy route: free-running, its torques parted by 4.97e-3
+# N m of the 5e-3 limit after 3 ticks on an H100 (K4 sums A in another
+# order than the plain version's einsum, and the trot amplifies it;
+# PERF.md), a margin that another host's CPU rounding could eat.
 # The control_tick entries hold config overrides, not tick arguments
 SMALL_ROUTES = {
     "gj": (GJ_KW, False),
     "amortized": (dict(AMORTIZED_KW, kkt_amortize_capacity=2), False),
     "full": (FULL_KW, False),
     "reduced_tier": (dict(TIER_KW, kkt_big_capacity=2), True),
+    "pallas": (LEGACY_KW, True),
     "chol": (CHOL_KW, False),
     "sweep_t": (SWEEP_KW, False),
     "gj_t": (GJ_T_KW, False),
@@ -226,6 +238,7 @@ SPIN_CYCLES = 20_000_000   # ~10 ms at the H100's ~1.98 GHz boost clock
 K1_RESID_TOL = 1e-3    # ||MX - I||_max of sequential Gauss-Jordan on the KKT family
 K2_REL_TOL = 1e-4      # A-products summed in another order over the iterations
 K4_REL_TOL = 1e-4      # the same, with the per-scenario A
+K4_DENSE_BATCH = 64    # the phase 3d row whose dense random A overflows
 # K6a with the K3 kernel against K6a with K3's plain version: K3 is
 # bit-equal to its plain version, so the products that follow see the
 # same operands; the tolerance (of the finite entries' scale) only
@@ -583,10 +596,12 @@ def block_inverse_row(port, m):
 
 
 def admm_rows(port, name, ops_all, shapes, fn, plain, tol, flops_of,
-              bytes_of, shared=()):
+              bytes_of, shared=(), dense_of=None):
     """A fused ADMM kernel against its plain version at each (b, iters),
     each output held to ``tol`` of its scale; times and the bound from
-    ``flops_of(ops, iters)`` and ``bytes_of(ops)``."""
+    ``flops_of(ops, iters)`` and ``bytes_of(ops)``; with ``dense_of``,
+    the number of blocks that ran the dense order, read after the
+    checked call."""
     import torch
     rows = []
     for b, iters in shapes:
@@ -594,6 +609,7 @@ def admm_rows(port, name, ops_all, shapes, fn, plain, tol, flops_of,
                for key, v in ops_all.items()}
         out = fn(**ops, iters=iters)
         torch.cuda.synchronize()
+        dense = None if dense_of is None else dense_of()
         ref = plain(**ops, iters=iters, sigma=1e-6, alpha=1.6)
         err, rels = 0.0, []
         for o_name, o, r in zip("xyz", out, ref):
@@ -607,19 +623,23 @@ def admm_rows(port, name, ops_all, shapes, fn, plain, tol, flops_of,
                                          alpha=1.6), 3)
         n = ops["qs"].shape[1]
         m = ops["ls"].shape[1]
-        flops, dense = flops_of(ops, iters)
+        flops, dense_flops = flops_of(ops, iters)
         bnd, by = bound_ms(flops, bytes_of(ops))
         log(f"  {name} B={b} n={n} m={m} iters={iters}: max rel "
             "|kernel-plain| x/y/z = " + "/".join(f"{r:.3e}" for r in rels)
             + f" (tol {tol}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"bound {bnd:.4f} ms ({by}; the dense count gives "
-            f"{dense / PEAK_F32_FLOPS * 1e3:.4f} ms)")
+            f"{dense_flops / PEAK_F32_FLOPS * 1e3:.4f} ms)"
+            + ("" if dense is None else
+               f"; {dense} of {b} blocks ran the dense order"))
         if max(rels) > tol:
             raise AssertionError(f"{name} disagrees at B={b}, n={n}, "
                                  f"{iters} iterations: {rels}")
         rows.append(dict(b=b, n=n, m=m, iters=iters, err=err, rel=max(rels),
                          ms=ms, plain_ms=plain_ms, bound_ms=bnd,
                          bound_by=by))
+        if dense is not None:
+            rows[-1]["dense_blocks"] = dense
     return rows
 
 
@@ -666,6 +686,7 @@ def k4_bytes(ops):
 
 
 def phase_kernels(port, device):
+    import torch
     k = port.kernels
     tick = real_tick(port, device)
     out = {}
@@ -693,8 +714,22 @@ def phase_kernels(port, device):
                + run_k2(ops_r, ((BATCH, 25), (192, 150), (48, 150))))
     log("[3d] K4 fused_admm vs plain")
     ops_l = tick["ops_legacy"](k.batched_inverse(tick["m_dense"]))
-    out[K4] = admm_rows(port, "K4", ops_l, ((BATCH, 25),), k.fused_admm,
-                        k.fused_admm_plain, K4_REL_TOL, k4_flops, k4_bytes)
+    # a dense random A in place of the friction pyramid: every block
+    # overflows the kernel's nonzero lists and runs the dense order
+    gen = torch.Generator().manual_seed(4)
+    ops_o = {key: v[:K4_DENSE_BATCH].contiguous() for key, v in ops_l.items()}
+    ops_o["a_s"] = (0.05 * torch.randn(ops_o["a_s"].shape, generator=gen)
+                    ).to(device)
+    run_k4 = lambda ops, shapes: admm_rows(
+        port, "K4", ops, shapes, k.fused_admm, k.fused_admm_plain,
+        K4_REL_TOL, k4_flops, k4_bytes,
+        dense_of=lambda: int(k.paths["fused_admm"].sum()))
+    out[K4] = (run_k4(ops_l, ((BATCH, 25),))
+               + run_k4(ops_o, ((K4_DENSE_BATCH, 25),)))
+    if (out[K4][0]["dense_blocks"] != 0
+            or out[K4][1]["dense_blocks"] != K4_DENSE_BATCH):
+        raise AssertionError("K4 took the wrong path: "
+                             f"{[r['dense_blocks'] for r in out[K4]]}")
     m = tick["m_full"]
     log("[3e] float32 products")
     out["f32_product_rel"] = f32_products(port, m)
@@ -1041,19 +1076,17 @@ def profile_ticks(port, route, step, carry, ticks: int = 5):
         f"kernel launches/tick")
     for key, ms, count in rows[:8]:
         log(f"    {ms / ticks:9.3f} ms/tick  x{count / ticks:6.1f}  {key[:90]}")
-    k2 = {}
+    named = {}
     for key, ms, count in rows:
-        for name in K2_KERNELS:
-            if name in key:
-                k_ms, k_count = k2.get(name, (0.0, 0.0))
-                k2[name] = (k_ms + ms / ticks, k_count + count / ticks)
-    for name, (ms, count) in k2.items():
-        log(f"    K2 {name}: {ms:.4f} ms/tick x{count:.1f}")
+        for label, part in NAMED_KERNELS.items():
+            if part in key:
+                k_ms, k_count = named.get(label, (0.0, 0.0))
+                named[label] = (k_ms + ms / ticks, k_count + count / ticks)
+    for label, (ms, count) in named.items():
+        log(f"    {label}: {ms:.4f} ms/tick x{count:.1f}")
     return dict(wall_ms=wall_ms / ticks, kernel_ms=busy / ticks,
                 busy_share=busy / wall_ms, launches=launches,
-                k2_ms=sum(ms for ms, _ in k2.values()),
-                k2_launches=sum(count for _, count in k2.values()),
-                k2_kernels=k2,
+                named_kernels=named,
                 top=[(key[:60], ms / ticks) for key, ms, _ in rows[:4]])
 
 
@@ -1675,7 +1708,7 @@ def main() -> int:
     launches.update({name: profile["launches"][name]
                      for name in (K6B, K6C, K6D, K6E, K6F)})
     kernels = [
-        kernel_entry(K1, "gj_inverse.cu", f"{PALLAS}:96", rows[K1], launches,
+        kernel_entry(K1, "inverse_t.cu", f"{PALLAS}:96", rows[K1], launches,
                      True),
         kernel_entry(K2, "fused_admm_shared.cu", f"{PALLAS}:428", rows[K2],
                      launches, False),
@@ -1691,7 +1724,7 @@ def main() -> int:
                      launches, True),
         kernel_entry(K6B, "gj_inplace.cu", f"{RETIRED}:144", rows[K6B],
                      launches, True),
-        kernel_entry(K6C, "gj_inverse.cu", f"{RETIRED}:213", rows[K6C],
+        kernel_entry(K6C, "inverse_t.cu", f"{RETIRED}:213", rows[K6C],
                      launches, True),
         kernel_entry(K6D, "gj_rank.cu", f"{RETIRED}:428", rows[K6D],
                      launches, True),
