@@ -9,7 +9,9 @@
 //   inverse with the "diag - 1" factor. Pivot k: d = M[k, k], f = column
 //   k of M with f[k] = d - 1, every row i of both arrays becomes
 //   x - f[i] * (row_k[j] * (1/d)); on row k that scales the row,
-//   r - (d - 1) r / d, without a select.
+//   r - (d - 1) r / d, without a select. pallas_kernels.py:126
+//   batched_inverse_small (K3, n <= 128: the reduced shapes and the Schur
+//   recursion's base) runs the same body, so the same rule set.
 // - a1_qp_mpc_controller_tpu/ops/pallas_retired.py:564 batched_inverse_T
 //   (K6g, body _gj_inverse_T_kernel, :516): the same with f[k] = 0, then
 //   row k of both set to row_k * (1/d). :213 batched_inverse_combined
@@ -54,18 +56,26 @@
 // only in row k (r, or K1's w - (d - 1) r), column k (t or 0 - t,
 // t = c[i] * (1/d)), (k, k), the factor column (column k, or row k with
 // sym_col) and the final negation. One kernel body serves all three.
-// - n <= 128: a 16 x 16 thread grid, each thread an R x R register tile
-//   (R = 1, 2, 4 or 8 for n <= 16, 32, 64, 128), entry (ty + 16a, tx + 16b)
-//   in w[a][b], zeros past n. The pivot loop nests an unrolled a0 over the
-//   register rows and a runtime p over 16 (k = 16 a0 + p), so every
-//   register index is a compile-time constant and the tile stays in
-//   registers. Pivot k reads row k and column k from a double-buffered
+// - n <= 128: a 16 x 16 thread grid, each thread an R x R register tile,
+//   R = ceil(n / 16) (1 to 8: the matrix zero-padded to 16 R, at most 15
+//   rows and columns past n), entry (ty + 16a, tx + 16b) in w[a][b], zeros
+//   past n. The zeros stay zeros (x - c * 0 and 0 - 0 * r), so the
+//   padding never reaches a live entry and R changes no result. The
+//   pivot loop nests an unrolled a0 over the register rows and a runtime
+//   p over 16 (k = 16 a0 + p), so every register index is a
+//   compile-time constant and the tile stays in registers. Pivot k reads row k and column k from a double-buffered
 //   staging area in shared memory (2n floats); each thread computes 1/d
 //   itself from the staged diagonal. After its update the threads that own
 //   row k + 1 and column k + 1 write them to the other buffer: one barrier
-//   a pivot. At R = 8: about 96 registers, no spills, two blocks an SM.
-//   A batch of at most 264 matrices is one wave, so its time is one
-//   block's: n pivots, each a barrier and the staged reads.
+//   a pivot. Each R has its own minimum of resident blocks
+//   (min_blocks: 8 at R <= 2, 6 at 3, 5 at 4, 4 at 5, 3 at 6, 2 at 7 and
+//   8), the most whose register cap (65,536 / (256 x blocks)) still holds
+//   R^2 + 2R floats and ~15 registers of indices and staging, so a small
+//   tile runs more matrices an SM: at R = 8 about 96 registers, two
+//   blocks an SM, so a batch of at most 264 matrices is one wave and its
+//   time one block's (n pivots, each a barrier and the staged reads); at
+//   R = 5 (K3's n = 66) four, 528 matrices a wave; at R = 4 (K3's n = 64)
+//   five, 660; at R = 2 (n = 32, the Schur recursion's base) eight, 1,056.
 // - n > 128: the working array is the output in device memory, each entry
 //   owned by one thread (a warp a row, lanes along the columns), with the
 //   same staging: 4n floats of shared memory, so n <= 14,528.
@@ -113,9 +123,14 @@ __device__ __forceinline__ float pivot_diagonal(float inv_d, float dm1) {
                                : __fsub_rn(1.0f, __fmul_rn(dm1, inv_d));
 }
 
+// The register kernel's resident blocks an SM for its launch bounds.
+constexpr int min_blocks(int r) {
+  return r <= 2 ? 8 : r == 3 ? 6 : r == 4 ? 5 : r == 5 ? 4 : r == 6 ? 3 : 2;
+}
+
 // n <= 16 R: the matrix in registers.
 template <int R, Rule kRule>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, min_blocks(R))
 inverse_reg_kernel(const float* __restrict__ m, float* __restrict__ out,
                    int n, int sym_col) {
   constexpr int kPad = kSide * R;
@@ -284,23 +299,31 @@ inverse_large_kernel(const float* __restrict__ m, float* __restrict__ out,
   }
 }
 
+using RegKernel = void (*)(const float*, float*, int, int);
+
+// The register kernel for n <= 128: R = ceil(n / 16).
+template <Rule kRule>
+RegKernel reg_kernel(int n) {
+  switch ((n + kSide - 1) / kSide) {
+    case 1: return inverse_reg_kernel<1, kRule>;
+    case 2: return inverse_reg_kernel<2, kRule>;
+    case 3: return inverse_reg_kernel<3, kRule>;
+    case 4: return inverse_reg_kernel<4, kRule>;
+    case 5: return inverse_reg_kernel<5, kRule>;
+    case 6: return inverse_reg_kernel<6, kRule>;
+    case 7: return inverse_reg_kernel<7, kRule>;
+    case 8: return inverse_reg_kernel<8, kRule>;
+    default: return nullptr;
+  }
+}
+
 template <Rule kRule>
 int launch(const float* m, float* out, int batch, int n, int sym_col,
            void* stream) {
   if (batch == 0 || n == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n <= kSide) {
-    inverse_reg_kernel<1, kRule><<<batch, kThreads, 0, s>>>(m, out, n,
-                                                            sym_col);
-  } else if (n <= 2 * kSide) {
-    inverse_reg_kernel<2, kRule><<<batch, kThreads, 0, s>>>(m, out, n,
-                                                            sym_col);
-  } else if (n <= 4 * kSide) {
-    inverse_reg_kernel<4, kRule><<<batch, kThreads, 0, s>>>(m, out, n,
-                                                            sym_col);
-  } else if (n <= 8 * kSide) {
-    inverse_reg_kernel<8, kRule><<<batch, kThreads, 0, s>>>(m, out, n,
-                                                            sym_col);
+  if (const RegKernel kernel = reg_kernel<kRule>(n)) {
+    kernel<<<batch, kThreads, 0, s>>>(m, out, n, sym_col);
   } else {
     const size_t smem = static_cast<size_t>(4 * n) * sizeof(float);
     if (smem > kDefaultSmem) {
@@ -337,4 +360,23 @@ extern "C" int inverse_t_sweep_launch(const float* m, float* out, int batch,
 extern "C" int inverse_t_k1_launch(const float* m, float* out, int batch,
                                    int n, void* stream) {
   return launch<Rule::kK1>(m, out, batch, n, 0, stream);
+}
+
+// The K1 rule set's register kernel that n (1 to 128) selects: blocks
+// resident an SM by CUDA's occupancy calculator (or minus the CUDA error
+// code); *regs and *local_bytes get its registers a thread and its local
+// memory a thread (spills).
+extern "C" int inverse_t_k1_occupancy(int n, int* regs, int* local_bytes) {
+  const RegKernel kernel = reg_kernel<Rule::kK1>(n);
+  if (kernel == nullptr) return -static_cast<int>(cudaErrorInvalidValue);
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  *regs = attr.numRegs;
+  *local_bytes = static_cast<int>(attr.localSizeBytes);
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                      kThreads, 0);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  return blocks;
 }

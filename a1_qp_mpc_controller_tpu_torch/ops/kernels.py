@@ -29,8 +29,7 @@ import torch
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parents[2] / "build" / "kernels"
-_SOURCES = {"gj_inverse_small": "gj_inverse_small.cu",
-            "chol_linv": "chol_linv.cu",
+_SOURCES = {"chol_linv": "chol_linv.cu",
             "fused_admm_shared": "fused_admm_shared.cu",
             "fused_admm": "fused_admm.cu",
             "inverse_t": "inverse_t.cu",
@@ -203,20 +202,26 @@ def batched_inverse_small_plain(m: torch.Tensor) -> torch.Tensor:
 
 def batched_inverse_small(m: torch.Tensor) -> torch.Tensor:
     """Inverse of a batch of small SPD matrices (B, n, n), n <= 128,
-    through the CUDA kernel sized for several matrices per SM
-    (csrc/gj_inverse_small.cu); plain version on the CPU."""
-    return _inverse(m, "batched_inverse_small", "gj_inverse_small",
-                    batched_inverse_small_plain, SMALL_N_MAX)
+    through K1's register kernel (csrc/inverse_t.cu), its tile sized to
+    n (16 ceil(n / 16)); plain version on the CPU."""
+    return _inverse(m, "batched_inverse_small", "inverse_t",
+                    batched_inverse_small_plain, SMALL_N_MAX,
+                    symbol="k1_launch")
 
 
-def batched_inverse_small_occupancy(n: int) -> int:
-    """K3 blocks (matrices of size n) that fit on one SM at once, by
-    CUDA's occupancy calculator."""
-    blocks = _fn("gj_inverse_small", "occupancy", [ctypes.c_int])(n)
+def inverse_reg_occupancy(n: int) -> dict:
+    """The register kernel that n (<= 128) selects in csrc/inverse_t.cu
+    (K1's and K3's rule set): its resident blocks (matrices) an SM by
+    CUDA's occupancy calculator, its registers and its local memory (spill)
+    bytes a thread."""
+    regs, local = ctypes.c_int(0), ctypes.c_int(0)
+    fn = _fn("inverse_t", "k1_occupancy", [ctypes.c_int, _P, _P])
+    blocks = fn(n, ctypes.addressof(regs), ctypes.addressof(local))
     if blocks < 0:
-        raise RuntimeError(f"gj_inverse_small occupancy: CUDA error "
+        raise RuntimeError(f"inverse_t occupancy at n={n}: CUDA error "
                            f"{-blocks}")
-    return blocks
+    return dict(blocks=blocks, registers=regs.value,
+                local_bytes=local.value)
 
 
 def batched_chol_linv_plain(a: torch.Tensor) -> torch.Tensor:

@@ -7,9 +7,11 @@ same arithmetic, bound through ``ops/kernels.py``'s build.
 - S1 ``micro_admm``: ``iters`` iterations of four micro-variants of the
   fused ADMM's inner loop ('full', 'nominv', 'nomatmul', 'dotgen'), N = 128
   variables, M = 256 rows, a0 shared (``csrc/micro_admm.cu``; the loop's
-  unroll, 1 or 4, is a template parameter). The TPU script's ``block``
-  (scenarios a VMEM tile) has no counterpart: one scenario's operands
-  fill a block's shared memory.
+  unroll, 1 or 4, is a template parameter). As the TPU script's
+  ``block`` shares a0 across a VMEM tile of scenarios, a block shares
+  one copy of a0 in shared memory across two scenarios, each one's minv
+  in registers: two is what an SM holds, so ``block`` is not a
+  parameter.
 - S2 ``mosaic_probe``: the probe bodies over (ni, nj, S) arrays with S
   lanes innermost (``csrc/mosaic_probes.cu``, one kernel a body; negate
   also serves the grid negate of ``probe_mosaic4.py``, whose grid of lane
@@ -97,6 +99,8 @@ def micro_admm(a0, minv, e, q, l, u, rho, x, y, z, variant="full",
             ("rho", rho, (b, M)), ("x", x, (b, N)), ("y", y, (b, M)),
             ("z", z, (b, M))):
         kernels._check(name, t, shape, dev)
+    if a0.data_ptr() % 16:
+        raise ValueError("a0: must be 16-byte aligned")
     xo, yo, zo = torch.empty_like(x), torch.empty_like(y), torch.empty_like(z)
     fn = kernels._fn("micro_admm", "launch",
                      [_P] * 13 + [ctypes.c_int] * 6 + [_P])

@@ -24,8 +24,9 @@ held against its plain PyTorch version:
 
 The scale of y is at least the largest rho z: y + rho (zp - z) is a
 difference of terms of that size. The TPU script's ``block`` (16/32/64
-scenarios a VMEM tile) has no Hopper counterpart: one scenario's operands
-fill a block's shared memory, so the sweep is variant x unroll. On the
+scenarios a VMEM tile) is fixed on Hopper: a block shares a0 across the
+two scenarios whose minv an SM's registers hold, so the sweep is
+variant x unroll. On the
 CPU (``--device cpu``) the plain versions run and nothing is timed.
 """
 

@@ -7,10 +7,12 @@ NVIDIA card and check it.
 Phases, in order:
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: the ten CUDA sources from
+2. build: the nine CUDA sources from
    ``a1_qp_mpc_controller_tpu_torch/csrc`` with nvcc for ``sm_90a`` (one
    nvcc process each, all at once; ptxas registers and spills logged by
-   kernel), and K3's occupancy by CUDA's calculator;
+   kernel), and the occupancy of the register kernel of
+   ``csrc/inverse_t.cu`` that K1 and K3 launch at n = 32, 64, 66 and 120
+   (resident blocks by CUDA's calculator, registers, spill bytes);
 3. the kernels against their plain PyTorch versions on the operands of a
    real B = 1024 trot tick, at every shape a driven route gives them:
    - K1 (Gauss-Jordan KKT inverse, the "diag - 1" rule set of
@@ -22,8 +24,10 @@ Phases, in order:
      150-iteration pools of 192/96/80/48/40 with 150) and at the reduced
      tier's n = 66, m = 110 (B = 1024 with 25 iterations, pools of 192
      and 48 with 150);
-   - K3 (Gauss-Jordan inverse, small n) at (1024, 66), (192, 66),
-     (48, 66) and (1024, 64), bit for bit;
+   - K3 (Gauss-Jordan inverse, small n: K1's rule set on a register tile
+     sized to n) at (1024, 66), (192, 66), (48, 66) and (1024, 64), and
+     at (1024, 32) on the leading 32 x 32 block of the KKT batch (the
+     Schur recursion's base, K6a), bit for bit;
    - K4 (fused ADMM, per-scenario A) at B = 1024, n = 120, m = 200, 25
      iterations, and at B = 64 with a dense random A, which overflows the
      kernel's nonzero lists and runs the dense order; the blocks that ran
@@ -160,12 +164,18 @@ K6S = "batched_inverse_sweep_T"
 K6B, K6C = "batched_inverse_inplace", "batched_inverse_combined"
 K6D, K6E = "batched_inverse_rank", "batched_inverse_rank_masked"
 K6F = "batched_inverse_spd"
-# the CUDA kernels each route's profile reports by name: label -> a part
-# of the profiler's name: K2's two (csrc/fused_admm_shared.cu), K1 (the
-# "diag - 1" rule set, Rule::kK1, of csrc/inverse_t.cu's kernels) and K4
-# (csrc/fused_admm.cu)
-NAMED_KERNELS = {"K1": "Rule)2>", "K2": "fused_admm_shared_kernel",
-                 "K2 pack": "pack_basis_kernel", "K4": "fused_admm_kernel<"}
+# the CUDA kernels each route's profile reports by name: label -> parts
+# of the profiler's name, any of which marks it: K2's two
+# (csrc/fused_admm_shared.cu), K1 and K3 (the "diag - 1" rule set,
+# Rule::kK1, of csrc/inverse_t.cu: the routes give K1 n = 120 and 160, the
+# tile of R = 8 and the kernel past n = 128, and K3 n = 32, 64 and 66,
+# the smaller tiles) and K4 (csrc/fused_admm.cu)
+_K1_RULE = "((anonymous namespace)::Rule)2>"
+NAMED_KERNELS = {
+    "K1": (f"reg_kernel<8, {_K1_RULE}", f"large_kernel<{_K1_RULE}"),
+    "K3": tuple(f"reg_kernel<{r}, {_K1_RULE}" for r in range(1, 8)),
+    "K2": ("fused_admm_shared_kernel",), "K2 pack": ("pack_basis_kernel",),
+    "K4": ("fused_admm_kernel<",)}
 # the kernels the component profile times (runtime/components.py)
 PROFILE_KERNELS = {K1, K2, K4, K6B, K6C, K6D, K6E, K6F, K6G, K6S}
 # route: (tick keyword arguments, untimed ticks, timed ticks, the kernels
@@ -700,6 +710,10 @@ def phase_kernels(port, device):
                             k.batched_inverse_small_plain)
                + inverse_rows(port, "K3", tick["m_64"], (BATCH,),
                               k.batched_inverse_small,
+                              k.batched_inverse_small_plain)
+               + inverse_rows(port, "K3 (K6a's base)",
+                              tick["m_full"][:, :32, :32], (BATCH,),
+                              k.batched_inverse_small,
                               k.batched_inverse_small_plain))
     log("[3c] K2 fused_admm_shared vs plain")
     ops_full = tick["ops_full"](k.batched_inverse(tick["m_full"]))
@@ -1078,8 +1092,8 @@ def profile_ticks(port, route, step, carry, ticks: int = 5):
         log(f"    {ms / ticks:9.3f} ms/tick  x{count / ticks:6.1f}  {key[:90]}")
     named = {}
     for key, ms, count in rows:
-        for label, part in NAMED_KERNELS.items():
-            if part in key:
+        for label, parts in NAMED_KERNELS.items():
+            if any(part in key for part in parts):
                 k_ms, k_count = named.get(label, (0.0, 0.0))
                 named[label] = (k_ms + ms / ticks, k_count + count / ticks)
     for label, (ms, count) in named.items():
@@ -1665,10 +1679,10 @@ def main() -> int:
             if any(key in line for key in ("Function properties",
                                            "registers", "spill", "smem")):
                 log(f"  ptxas {name}: {line.strip()}")
-    occupancy = {n: port.kernels.batched_inverse_small_occupancy(n)
-                 for n in (64, 66)}
-    log(f"  K3 matrices resident per SM (occupancy calculator): "
-        f"{occupancy}")
+    occupancy = {n: port.kernels.inverse_reg_occupancy(n)
+                 for n in (32, 64, 66, 120)}
+    log(f"  inverse_t register kernel (K1, K3) by n: blocks resident per "
+        f"SM (occupancy calculator), registers, spill bytes: {occupancy}")
 
     log("[3] kernels vs plain")
     rows = phase_kernels(port, device)
@@ -1712,7 +1726,7 @@ def main() -> int:
                      True),
         kernel_entry(K2, "fused_admm_shared.cu", f"{PALLAS}:428", rows[K2],
                      launches, False),
-        kernel_entry(K3, "gj_inverse_small.cu", f"{PALLAS}:126", rows[K3],
+        kernel_entry(K3, "inverse_t.cu", f"{PALLAS}:126", rows[K3],
                      launches, True),
         kernel_entry(K4, "fused_admm.cu", f"{PALLAS}:275", rows[K4],
                      launches, False),

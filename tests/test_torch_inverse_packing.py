@@ -1,10 +1,10 @@
 """The arithmetic that ``csrc/inverse_t.cu`` relies on, checked on the CPU:
-a torch emulation of its pivots against the plain versions of K1
+a torch emulation of its pivots against the plain versions of K1 and K3
 (``ops/kernels.py``), K6g and the sweep (``ops/kernels_retired.py``), bit
 for bit.
 
-The kernel keeps one array a matrix, zero-padded to 16 R (R = 1, 2, 4 or
-8 register rows a thread). Gauss-Jordan keeps the live columns of
+The kernel keeps one array a matrix, zero-padded to 16 R (R = ceil(n / 16)
+register rows a thread, 1 to 8). Gauss-Jordan keeps the live columns of
 [M | I] in it: slot j holds M's column j for j > k and the inverse's
 column j for j <= k, so at pivot k slot k turns over from M's column k
 to the inverse's, 0 - f[i] * (1/d) off row k and, at (k, k), 1/d (K6g)
@@ -33,9 +33,7 @@ def _kernel_pivots(m, rule, sym_col=False):
     rules; the staged row and column k + 1 read after the update."""
     sweep = rule == "sweep"
     b, n, _ = m.shape
-    pad = 16
-    while pad < n:
-        pad *= 2
+    pad = 16 * -(-n // 16)
     w = m.new_zeros((b, pad, pad))
     w[:, :n, :n] = m
     row, col = w[:, 0].clone(), w[:, :, 0].clone()
@@ -77,3 +75,14 @@ def test_one_array_pivots_match_plain(kind, n):
             mt, kind == "sweep_sym_col").permute(2, 0, 1)
     x = _kernel_pivots(m, kind.split("_")[0], kind == "sweep_sym_col")
     assert torch.equal(x, ref)
+
+
+@pytest.mark.parametrize("n", [32, 66])
+def test_k3_pivots_match_plain(n):
+    """K3 on the register kernel under K1's rules, at the Schur recursion's
+    base (n = 32, R = 2, no padding) and the reduced tier's n = 66 (R = 5:
+    14 zero rows and columns), on the SPD batch of the card test
+    (B = 37)."""
+    m = t(_spd(37, n))
+    assert torch.equal(_kernel_pivots(m, "k1"),
+                       kernels.batched_inverse_small_plain(m))

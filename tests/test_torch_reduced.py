@@ -15,7 +15,8 @@ against the JAX package.
   to the reduced tier would solve a wrong QP.
 
 The ``cuda``-marked test holds the K3 kernel against its plain version
-on the card, bit for bit, and skips without one.
+on the card, bit for bit (at both reduced shapes and at the Schur
+recursion's base of 32), and skips without one.
 """
 
 import dataclasses
@@ -365,11 +366,15 @@ def card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_r", [64, 66])
+@pytest.mark.parametrize("n_r", [64, 66, 32])
 def test_k3_kernel_matches_plain_on_card(card, n_r):
+    """The live blocks at 64 and 66 variables; at 32 the leading 32 x 32
+    block of the SPD KKT matrices, the first base of the Schur recursion
+    (K6a)."""
     m_b, live = _eliminated_kkt_batch([TROT_A, TROT_B, EARLY, STAND] * 4,
                                       card)
-    m = _live_blocks(m_b, live, n_r)
+    m = (m_b[:, :n_r, :n_r].contiguous() if n_r == 32
+         else _live_blocks(m_b, live, n_r))
     before = kernels.launches["batched_inverse_small"]
     x = kernels.batched_inverse_small(m)
     torch.cuda.synchronize()

@@ -16,6 +16,11 @@ transposes and row/column mix-ups).
   rho z, because y + rho (zp - z) is a difference of terms of that size:
   where no bound is active y falls to that difference's rounding floor
   (~1e-9 in 'nomatmul'), whose digits no two summation orders share.
+- S1's kernel partition (``csrc/micro_admm.cu``): a torch model of how
+  the kernel splits and adds each product (its lane partial sums as fmaf
+  chains, the shuffle folds across lanes, minv's two halves), at B = 8
+  and 3 iterations, within 1e-4 of each output's scale of the plain
+  version for 'full' and 'dotgen'.
 - S2 ``mosaic_probe``: every probe body at its smallest ladder shape, and
   rank1, thin_transpose and slab_axis0 also at (24, 24, 128); the grid
   negate of ``probe_mosaic4.py`` on a grid of 2 lane blocks. Limit: 1e-6
@@ -142,6 +147,89 @@ def test_micro_admm_matches_jax(variant):
         assert not torch.allclose(full[0], out[0], rtol=1e-3)
 
 
+def _fma(a, b, c):
+    """fmaf to within a double rounding: float64 holds the float32 product
+    exactly, and the sum is rounded to float64, then to float32."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _fold(p):
+    """The kernel's shuffle fold of partial sums over the lanes (axis 1,
+    2^k long): lanes i and i + half added, half = 2^(k-1) down to 1."""
+    while p.shape[1] > 1:
+        half = p.shape[1] // 2
+        p = p[:, :half] + p[:, half:]
+    return p[:, 0]
+
+
+def _s1_kernel_model(a0, minv, e, q, l, u, rho, x, y, z, variant, iters):
+    """``micro_admm_plain`` with each product split and added as
+    ``csrc/micro_admm.cu`` does (its header comment):
+    - (e w) a0: lane l sums the rows l + 32r, r = 0..7, in order, then
+      the 32 lanes fold;
+    - minv' rhs (minv rhs for 'dotgen'): two halves of 64 in order, half
+      0 plus half 1;
+    - a0 xt: lane j sums the columns 4j..4j+3, then 64+4j..64+4j+3, then
+      the 16 lanes fold."""
+    b, n = q.shape
+    m = l.shape[1]
+    inv_rho = 1.0 / rho
+    a_rows = a0.view(m // 32, 32, n)              # [r, lane, n]
+    a_cols = a0.view(m, 2, 16, 4)                 # [m, g, lane, q]
+    mh = (minv.transpose(1, 2) if variant == "dotgen" else minv).reshape(
+        b, 2, n // 2, n)                          # [b, half, i, j]
+    for _ in range(iters):
+        ew = e * (rho * z - y)
+        if variant == "nomatmul":
+            atw = ew[:, :n]
+        else:
+            ew_rows = ew.view(b, m // 32, 32)
+            p = torch.zeros(b, 32, n)
+            for r in range(m // 32):
+                p = _fma(ew_rows[:, r, :, None], a_rows[r][None], p)
+            atw = _fold(p)
+        rhs = ks.SIGMA * x - q + atw
+        if variant == "nominv":
+            xt = rhs
+        else:
+            rh = rhs.view(b, 2, n // 2)
+            acc = torch.zeros(b, 2, n)
+            for i in range(n // 2):
+                acc = _fma(mh[:, :, i, :], rh[:, :, i, None], acc)
+            xt = acc[:, 0] + acc[:, 1]
+        x1 = ks.ALPHA * xt + (1.0 - ks.ALPHA) * x
+        if variant == "nomatmul":
+            ax = torch.cat([xt, xt], dim=1)
+        else:
+            x_cols = xt.view(b, 2, 16, 4)
+            p = torch.zeros(b, 16, m)
+            for g in range(2):
+                for c in range(4):
+                    p = _fma(a_cols[:, g, :, c].T[None],
+                             x_cols[:, g, :, c, None], p)
+            ax = _fold(p)
+        zp = ks.ALPHA * ax + (1.0 - ks.ALPHA) * z
+        z1 = torch.clamp(zp + y * inv_rho, l, u)
+        y = y + rho * (zp - z1)
+        x, z = x1, z1
+    return x, y, z
+
+
+@pytest.mark.parametrize("variant", ["full", "dotgen"])
+def test_micro_admm_kernel_partition_matches_plain(variant):
+    """The kernel's summation order (``_s1_kernel_model``) against the
+    plain version's at B = 8 and 3 iterations: within S1_TOL of each
+    output's scale, the limit ``scripts/micro_admm.py`` holds the kernel
+    to at 3 iterations; and not the plain version's order (it differs
+    somewhere)."""
+    ins = {k: t(v) for k, v in _s1_inputs(B).items()}
+    out = _s1_kernel_model(**ins, variant=variant, iters=3)
+    ref = ks.micro_admm_plain(**ins, variant=variant, iters=3)
+    _s1_close([o.numpy() for o in out], [r.numpy() for r in ref],
+              ins["rho"].numpy(), variant)
+    assert not all(torch.equal(o, r) for o, r in zip(out, ref))
+
+
 def test_micro_admm_nominv_diverges_at_the_scripts_iterations():
     """'nominv' is a timing-only variant: at 50 iterations on the
     script's inputs it is no longer finite (so it is compared at 3)."""
@@ -236,6 +324,20 @@ def test_micro_admm_kernel_matches_plain_on_card(card, variant):
                                   unroll=unroll))
     for a, b in zip(*outs):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 7])
+def test_micro_admm_kernel_odd_batch_on_card(card, b):
+    """A batch that leaves the last block's second scenario empty: every
+    variant within the script's limit of the plain version at 3
+    iterations on every scenario."""
+    ins = micro_admm_script.make_inputs(b, card)
+    for variant in ks.VARIANTS:
+        out = ks.micro_admm(**ins, variant=variant, iters=3)
+        torch.cuda.synchronize()
+        res = micro_admm_script.compare(out, ins, variant, 3, every=True)
+        assert res["ok"], (variant, res)
 
 
 @pytest.mark.cuda
