@@ -733,11 +733,22 @@ def randomize_params(generator: torch.Generator, n: int,
     )
 
 
+def flat_batch_from_params(cfg: A1Config, params: RobotParams,
+                           device=CUDA):
+    """Flat terrain + standing-start carry for the batched ``params``:
+    the closed-loop batch of given scenarios. Returns (params, terrain,
+    carry)."""
+    device = check_on(device, params.robot_mass)
+    terr = terrain_mod.Terrain.flat(params.robot_mass.shape[0],
+                                    device=device)
+    carry = cl.make_standing_start(cfg, params, terr, device=device)
+    return params, terr, carry
+
+
 def make_flat_batch(cfg: A1Config, generator: torch.Generator, n: int,
                     base: RobotParams, device=CUDA):
     """Randomized params + flat terrain + standing-start carry: the
     closed-loop throughput batch. Returns (params, terrain, carry)."""
-    params = randomize_params(generator, n, base, device=device)
-    terr = terrain_mod.Terrain.flat(n, device=device)
-    carry = cl.make_standing_start(cfg, params, terr, device=device)
-    return params, terr, carry
+    return flat_batch_from_params(
+        cfg, randomize_params(generator, n, base, device=device),
+        device=device)

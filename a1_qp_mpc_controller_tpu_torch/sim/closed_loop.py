@@ -1,15 +1,17 @@
-"""Closed-loop carry and command schedule (counterpart of ``LoopCarry``,
-``make_standing_start`` and ``joy_schedule`` in ``sim/closed_loop.py``)."""
+"""Closed-loop rollout: controller and plant in a loop (counterpart of
+``sim/closed_loop.py``: ``LoopCarry``, ``Trace``, ``make_standing_start``,
+``rollout`` and ``joy_schedule``), over a batch of scenarios."""
 
 from __future__ import annotations
 
 import torch
 
 from a1_qp_mpc_controller_tpu_torch.config import A1Config, RobotParams
+from a1_qp_mpc_controller_tpu_torch.control.controller import control_tick
 from a1_qp_mpc_controller_tpu_torch.sim import plant as plant_mod
 from a1_qp_mpc_controller_tpu_torch.sim import terrain as terrain_mod
 from a1_qp_mpc_controller_tpu_torch.tensors import (
-    CUDA, resolve_device, tensorclass,
+    CUDA, check_on, const, resolve_device, tensorclass, tree_map,
 )
 from a1_qp_mpc_controller_tpu_torch.types import CtrlMem, CtrlState, JoyCmd
 
@@ -20,6 +22,24 @@ class LoopCarry:
     mem: CtrlMem
     ps: plant_mod.PlantState
     prev_root_lin_vel: torch.Tensor
+
+
+@tensorclass
+class Trace:
+    """Per-tick telemetry of a rollout, (T, B, ...) on every field."""
+
+    root_pos: torch.Tensor          # (T,B,3) true body position
+    root_euler_est: torch.Tensor    # (T,B,3) the controller's view
+    est_root_pos: torch.Tensor      # (T,B,3) estimator output
+    foot_forces_grf: torch.Tensor   # (T,B,4,3) commanded GRFs (body frame)
+    joint_torques: torch.Tensor     # (T,B,12)
+    contacts: torch.Tensor          # (T,B,4)
+    foot_force_sensor: torch.Tensor  # (T,B,4)
+    root_lin_vel: torch.Tensor      # (T,B,3) true body velocity
+    # per-foot swing tracking, yaw-aligned body frame
+    swing_target: torch.Tensor      # (T,B,4,3) Bezier target this tick
+    swing_actual: torch.Tensor      # (T,B,4,3) actual foot position
+    swing_err: torch.Tensor         # (T,B,4) |target - actual|
 
 
 def make_standing_start(cfg: A1Config, params: RobotParams,
@@ -36,6 +56,42 @@ def make_standing_start(cfg: A1Config, params: RobotParams,
     mem = CtrlMem.init(cfg, params, device=device)
     return LoopCarry(cs=cs, mem=mem, ps=ps,
                      prev_root_lin_vel=ps.root_lin_vel)
+
+
+def rollout(cfg: A1Config, params: RobotParams,
+            terrain: terrain_mod.Terrain, carry: LoopCarry,
+            joy_seq: JoyCmd, n_steps: int, substeps: int = 5,
+            device=CUDA) -> tuple[LoopCarry, Trace]:
+    """Run ``n_steps`` control periods of ``read_sensors`` ->
+    ``control_tick`` -> ``plant_step`` over the batch; ``joy_seq`` has a
+    leading (T,) axis on every field (:func:`joy_schedule`). Returns the
+    last carry and the Trace stacked on a leading T axis, the batch axis
+    after it. The plant is ``sim.plant``: the JAX package's ``plant=``
+    switch to the articulated plant waits for ``sim/joint_plant``."""
+    device = check_on(device, carry.ps.root_pos)
+    dt = const(cfg.control_dt, carry.ps.root_pos.dtype, device)
+    traces = []
+    for t in range(n_steps):
+        sensors = plant_mod.read_sensors(params, carry.ps,
+                                         carry.prev_root_lin_vel, dt)
+        cs, mem, torques = control_tick(
+            cfg, params, carry.cs, carry.mem, sensors,
+            tree_map(lambda a: a[t], joy_seq), dt)
+        ps = plant_mod.plant_step(params, terrain, carry.ps, torques, dt,
+                                  substeps)
+        carry = LoopCarry(cs=cs, mem=mem, ps=ps,
+                          prev_root_lin_vel=carry.ps.root_lin_vel)
+        traces.append(Trace(
+            root_pos=ps.root_pos, root_euler_est=cs.root_euler,
+            est_root_pos=cs.estimated_root_pos,
+            foot_forces_grf=cs.foot_forces_grf, joint_torques=torques,
+            contacts=cs.contacts, foot_force_sensor=ps.foot_force_n,
+            root_lin_vel=ps.root_lin_vel,
+            swing_target=cs.foot_pos_target_last_time,
+            swing_actual=cs.foot_pos_cur,
+            swing_err=torch.linalg.vector_norm(
+                cs.foot_pos_target_last_time - cs.foot_pos_cur, dim=-1)))
+    return carry, tree_map(lambda *xs: torch.stack(xs), *traces)
 
 
 def joy_schedule(n_steps: int, *, walk_after: int | None = None,

@@ -17,13 +17,16 @@ Phases, in order:
    real B = 1024 trot tick, at every shape a driven route gives them:
    - K1 (Gauss-Jordan KKT inverse, the "diag - 1" rule set of
      ``csrc/inverse_t.cu``) at B = 40/48/80/96/128/160/192/1024 (rescue
-     rounds, capacity refresh, the big bucket, refresh-all), bit for bit;
+     rounds, capacity refresh, the big bucket, refresh-all) and at the
+     amortized gate's 16/8/2 (refresh-all and the 'gj' column, the
+     rescue rounds, the refresh), bit for bit;
    - K2 (fused shared-basis ADMM: a pack launch of the shared basis's
      nonzeros, then the iterations) at n = 120, m = 200 (B = 1024 and
      the big bucket's 160 with 25 iterations; B = 1024 and the
-     150-iteration pools of 192/96/80/48/40 with 150) and at the reduced
-     tier's n = 66, m = 110 (B = 1024 with 25 iterations, pools of 192
-     and 48 with 150);
+     150-iteration pools of 192/96/80/48/40 with 150; the amortized
+     gate's B = 16 with 25, and its pools of 16/8/4 with 150) and at the
+     reduced tier's n = 66, m = 110 (B = 1024 with 25 iterations, pools
+     of 192 and 48 with 150);
    - K3 (Gauss-Jordan inverse, small n: K1's rule set on a register tile
      sized to n) at (1024, 66), (192, 66), (48, 66) and (1024, 64), and
      at (1024, 32) on the leading 32 x 32 block of the KKT batch (the
@@ -102,6 +105,15 @@ Phases, in order:
    B = 1024 (3 ticks), a B = 8 card-vs-CPU check of both from one
    CPU-stood state, and the stand gate (``runtime.golden.
    run_stand_batched_gate(1.0, 2, 3)``) beside ``GOLDEN_REPORT.json``;
+   then the MPC golden gates (``runtime.golden``, the float64 solves in
+   a pool of the host's cores but one): the batched amortized gate at
+   its record's protocol (16 scenarios of the record's draws, 2.5 s,
+   every 3rd tick from the onset: 3,200 samples; the bench route, K1
+   and K2, their launches counted from 0 just before it), which must
+   keep every scenario alive and hold 0.97 of its samples within 2 N,
+   and a short ``fixed_25it_rescue`` gate (the shipped schedule through
+   ``control_tick``, 2 s, every 10th tick from the onset at 1 s), every
+   sample within 2 N; no NaN in either; each gate's wall time printed;
 7. one JSON line listing each kernel, then the device line.
 
 Every failed check raises. The script needs a CUDA card and the
@@ -114,6 +126,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -287,6 +300,21 @@ SMALL_QP_F_TOL = 0.15        # N
 SMALL_QP_TQ_TOL = 0.045      # N m
 GATE_MIN_SAMPLES = 300       # tests/test_golden.py's limits
 GATE_MAX_DEV = 1.0           # N
+# the MPC golden gates: the amortized gate's record protocol gives 3,200
+# samples; its share within 2 N must reach the 'gj' column's record
+# (GOLDEN_REPORT.json gj_batched_gate, 0.9706), the fixed gate's is 1.0
+# as its record's
+AMORTIZED_GATE_SAMPLES = 3200
+# the shapes the amortized gate (B = 16, refresh 2, rescue pool 4 at 150
+# iterations) gives K1 and K2, below one wave: K1's refresh of all 16
+# (and the 'gj' column's every tick), its rescue rounds of 16 and 8 and
+# its refresh of 2; K2's first pass (16, 25), the continuation pool (4,
+# 150; the carried inverse, no K1) and the rescue rounds (16, 150) and
+# (8, 150)
+GATE_K1_BATCHES = (16, 8, 2)
+GATE_K2_SHAPES = ((16, 25), (16, 150), (8, 150), (4, 150))
+AMORTIZED_GATE_MIN_FRAC = 0.97
+FIXED_GATE = dict(seconds=2.0, sample_every=10)
 
 
 def log(*a):
@@ -339,7 +367,8 @@ class Port:
                      "ops.kernels_scripts", "ops.linalg",
                      "parallel.batched", "sim.plant", "sim.closed_loop",
                      "runtime.components", "runtime.profiling",
-                     "runtime.golden", "scripts.micro_admm",
+                     "runtime.golden", "scripts.run_golden_dense",
+                     "scripts.micro_admm",
                      "scripts.probe_mosaic", "scripts.probe_mosaic2",
                      "scripts.probe_mosaic3", "scripts.probe_mosaic4"):
             setattr(self, name.split(".")[-1],
@@ -702,7 +731,8 @@ def phase_kernels(port, device):
     out = {}
     log("[3a] K1 batched_inverse vs plain")
     out[K1] = inverse_rows(port, "K1", tick["m_full"],
-                           (BATCH, 192, 160, 128, 96, 80, 48, 40),
+                           (BATCH, 192, 160, 128, 96, 80, 48, 40)
+                           + GATE_K1_BATCHES,
                            k.batched_inverse, k.batched_inverse_plain)
     log("[3b] K3 batched_inverse_small vs plain")
     out[K3] = (inverse_rows(port, "K3", tick["m_r"], (BATCH, 192, 48),
@@ -724,7 +754,7 @@ def phase_kernels(port, device):
         shared=("a0", "a1"))
     out[K2] = (run_k2(ops_full, ((BATCH, 25), (160, 25), (BATCH, 150),
                                  (192, 150), (96, 150), (80, 150),
-                                 (48, 150), (40, 150)))
+                                 (48, 150), (40, 150)) + GATE_K2_SHAPES)
                + run_k2(ops_r, ((BATCH, 25), (192, 150), (48, 150))))
     log("[3d] K4 fused_admm vs plain")
     ops_l = tick["ops_legacy"](k.batched_inverse(tick["m_dense"]))
@@ -1593,6 +1623,58 @@ def phase_gate(port, device):
     return rep
 
 
+def phase_golden(port, device):
+    """The MPC golden gates on the card: the batched amortized gate at
+    its record's protocol (K1's and K2's launches counted in it) and a
+    short ``fixed_25it_rescue`` gate, beside their records."""
+    golden, k = port.golden, port.kernels
+    records = json.loads((ROOT / "GOLDEN_REPORT.json").read_text())
+    workers = max(1, (os.cpu_count() or 1) - 1)
+    log(f"  host: {os.cpu_count()} CPUs, {workers} float64 solver workers")
+    k.reset_launches()
+    t0 = time.perf_counter()
+    amort = golden.run_amortized_gate(workers=workers, device=device)
+    amort["wall_s"] = time.perf_counter() - t0
+    amort["launches"] = {name: k.launches[name] for name in (K1, K2)}
+    t0 = time.perf_counter()
+    fixed = golden.run_gate(
+        **FIXED_GATE, verbose=False, workers=workers, device=device,
+        **port.run_golden_dense.SHIPPED)
+    fixed["wall_s"] = time.perf_counter() - t0
+    out = {}
+    for name, rep, key, note in (
+            ("amortized", amort, "amortized_batched",
+             "16 scenarios, 2.5 s, every 3rd tick from 1 s"),
+            ("fixed_25it_rescue", fixed, "fixed_25it_rescue",
+             "2 s, every 10th tick from 1 s")):
+        ref = records.get(key, {})
+        extra = (f", alive {rep['alive_frac']}, launches {rep['launches']}"
+                 if name == "amortized" else "")
+        log(f"  {name} gate ({note}): {rep['samples']} samples, max "
+            f"{rep['max_dev_N']:.4f} N, p95 {rep['p95_dev_N']:.4f} N, mean "
+            f"{rep['mean_dev_N']:.4f} N, frac within {rep['tol_N']} N "
+            f"{rep['frac_within_tol']}, nan {rep['nan']}{extra}, "
+            f"{rep['wall_s']:.1f} s; GOLDEN_REPORT.json {key} (the JAX "
+            f"package's record, {ref.get('samples')} samples): frac "
+            f"{ref.get('frac_within_tol')}, max "
+            f"{ref.get('max_dev_N', float('nan')):.4f} N, p95 "
+            f"{ref.get('p95_dev_N', float('nan')):.4f} N")
+        rep["golden_report"] = {f: ref.get(f) for f in (
+            "samples", "max_dev_N", "p95_dev_N", "mean_dev_N",
+            "frac_within_tol")}
+        out[name] = rep
+    if amort["worst"]:
+        log(f"  amortized gate's worst samples: {amort['worst']}")
+    if (amort["nan"] or amort["alive_frac"] != 1.0
+            or amort["samples"] != AMORTIZED_GATE_SAMPLES
+            or amort["frac_within_tol"] < AMORTIZED_GATE_MIN_FRAC
+            or not all(amort["launches"].values())):
+        raise AssertionError(f"amortized gate: {amort}")
+    if fixed["nan"] or fixed["frac_within_tol"] != 1.0:
+        raise AssertionError(f"fixed_25it_rescue gate: {fixed}")
+    return out
+
+
 def kernel_entry(name, source, replaces, rows, launches, lib):
     """The kernels line's entry: the headline shape's numbers (the first
     row), every other shape beside them."""
@@ -1704,6 +1786,8 @@ def main() -> int:
     small_stand = phase_small_stand(port, device)
     log("[6c] stand gate")
     gate = phase_gate(port, device)
+    log("[6d] MPC golden gates")
+    golden = phase_golden(port, device)
 
     log("[7] kernels")
     # each kernel's launches on the path it is read for: K1/K2 on the
@@ -1753,6 +1837,9 @@ def main() -> int:
             {r: m["launches"][entry["name"]] for r, m in routes.items()},
             gj_warmup=gj_counts[entry["name"]],
             components=profile["launches"][entry["name"]])
+        if entry["name"] in golden["amortized"]["launches"]:
+            entry["launches_by_route"]["amortized_gate"] = \
+                golden["amortized"]["launches"][entry["name"]]
     kernels[4]["launches_by_route"][main_route[K5]] = launches[K5]
     kernels[2]["occupancy_per_sm"] = occupancy
     # K6a has no kernel of its own: K3 at its base (4 launches a tick on
@@ -1775,7 +1862,7 @@ def main() -> int:
                     "control_tick": ticks, "components": profile["rows"],
                     "f32_product_rel": rows["f32_product_rel"],
                     "stand": stand, "small_stand": small_stand,
-                    "stand_gate": gate,
+                    "stand_gate": gate, "golden_gates": golden,
                     "seconds": time.perf_counter() - t_start}))
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -39,7 +39,9 @@ def test_port_imports_no_jax():
     for name in ("scripts.micro_admm", "scripts.probe_mosaic",
                  "scripts.probe_mosaic2", "scripts.probe_mosaic3",
                  "scripts.probe_mosaic4", "ops.kernels_scripts",
-                 "ops.qp_ref", "control.safety", "runtime.golden"):
+                 "ops.qp_ref", "control.safety", "runtime.golden",
+                 "sim.closed_loop", "scripts.run_golden_dense",
+                 "scripts.run_golden_amortized"):
         assert f"{port.__name__}.{name}" in mods, name
 
 
@@ -87,6 +89,13 @@ def test_entry_points_raise_without_a_card(monkeypatch):
             kkt_backend="reduced_admm", rescue_capacity=1),
         lambda: closed_loop.joy_schedule(4),
         lambda: golden.run_stand_batched_gate(0.01),
+        lambda: golden.run_gate(0.01),
+        lambda: golden.run_amortized_gate(0.01, batch=2),
+        lambda: golden.gate_params(params, 2),
+        lambda: batched.flat_batch_from_params(cfg, pb),
+        lambda: closed_loop.rollout(
+            cfg, pb, terr, carry,
+            closed_loop.joy_schedule(1, device="cpu"), 1),
         lambda: micro_admm.make_inputs(2),
         lambda: probe_mosaic.run_ladder(probe_mosaic.LADDER[:1]),
         lambda: probe_mosaic3.kkt_batch(2),
