@@ -21,9 +21,12 @@ variants that the component profile (``runtime/components.py``) times.
   written by a select: the arithmetic of K6g in the batch-leading layout,
   so K6g's kernel (``csrc/inverse_t.cu``) on the (B, n, n) input.
 - K6d ``batched_inverse_rank`` and K6e ``batched_inverse_rank_masked``:
-  rank-r panel Gauss-Jordan (``csrc/gj_rank.cu``, r = 2, 4 or 8). They
-  keep the TPU versions' identity padding of n to a multiple of r: those
-  pivots decide the panels.
+  rank-r panel Gauss-Jordan (``csrc/gj_rank.cu``, r = 2, 4 or 8): one
+  block a matrix on a register tile with the live columns of [M | I] in
+  one array for n <= 128, the shared-memory design past it (the wide
+  tier). They keep the TPU versions'
+  identity padding of n to a multiple of r: those pivots decide the
+  panels.
 - K6f ``batched_inverse_spd``: the symmetric sweep, batch-leading
   (``csrc/sweep_inverse.cu``); the arithmetic of K6h with ``sym_col``.
   The TPU version's identity pivots up to 128 lanes leave the n x n block
@@ -41,6 +44,8 @@ CUDA tensor it launches its kernel or raises, counted in
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -328,8 +333,8 @@ def batched_inverse_rank_masked_plain(m: torch.Tensor, rank: int = 8
 
 
 def _rank_n_max(rank: int) -> int:
-    """The largest multiple of ``rank`` whose arrays (2n^2 + 3 rank n
-    floats) fit in a block's shared memory."""
+    """The largest multiple of ``rank`` whose arrays on the wide tier
+    (2n^2 + 3 rank n floats) fit in a block's shared memory."""
     n = rank
     while (2 * (n + rank) ** 2 + 3 * rank * (n + rank)) * 4 \
             <= kernels.MAX_SMEM_BYTES:
@@ -347,8 +352,8 @@ def _rank_inverse(m, rank, name, symbol, plain):
 
 def batched_inverse_rank(m: torch.Tensor, rank: int = 2) -> torch.Tensor:
     """K6d: invert a batch of SPD matrices (B, n, n) with the rank-r panel
-    Gauss-Jordan kernel (csrc/gj_rank.cu), r in (2, 4, 8); plain version
-    on the CPU."""
+    Gauss-Jordan kernel (csrc/gj_rank.cu: the register tile for n <= 128,
+    then the wide tier), r in (2, 4, 8); plain version on the CPU."""
     return _rank_inverse(m, rank, "batched_inverse_rank", "launch",
                          _rank_plain)
 
@@ -356,10 +361,28 @@ def batched_inverse_rank(m: torch.Tensor, rank: int = 2) -> torch.Tensor:
 def batched_inverse_rank_masked(m: torch.Tensor, rank: int = 8
                                 ) -> torch.Tensor:
     """K6e: invert a batch of SPD matrices (B, n, n) with the corrected
-    rank-r panel Gauss-Jordan kernel (csrc/gj_rank.cu), r in (2, 4, 8);
-    plain version on the CPU."""
+    rank-r panel Gauss-Jordan kernel (csrc/gj_rank.cu: the register tile
+    for n <= 128, then the wide tier), r in (2, 4, 8); plain version on
+    the CPU."""
     return _rank_inverse(m, rank, "batched_inverse_rank_masked",
                          "masked_launch", _rank_masked_plain)
+
+
+def rank_reg_occupancy(n: int, rank: int, masked: bool) -> dict:
+    """The register-tier kernel of csrc/gj_rank.cu that n (<= 128), rank
+    and ``masked`` select: its resident blocks (matrices) an SM by CUDA's
+    occupancy calculator, its registers and its local memory (spill)
+    bytes a thread."""
+    regs, local = ctypes.c_int(0), ctypes.c_int(0)
+    fn = kernels._fn("gj_rank", "occupancy",
+                     [ctypes.c_int] * 3 + [kernels._P] * 2)
+    blocks = fn(n, rank, int(masked), ctypes.addressof(regs),
+                ctypes.addressof(local))
+    if blocks < 0:
+        raise RuntimeError(f"gj_rank occupancy at n={n}, rank={rank}: CUDA "
+                           f"error {-blocks}")
+    return dict(blocks=blocks, registers=regs.value,
+                local_bytes=local.value)
 
 
 def batched_inverse_spd_plain(m: torch.Tensor) -> torch.Tensor:

@@ -9,6 +9,9 @@ scaled to the batch.
     python -m a1_qp_mpc_controller_tpu_torch.scripts.run_golden_amortized \
         [--backend amortized,gj] [--out build/golden_amortized.json]
 
+``--walk-after 1.25 --seconds 2.75`` keeps the 3,200 samples on another
+trajectory: the walk starts at another point of the staggered gaits.
+
 Per backend: the gate's report, its wall time, the launches of K1
 (``batched_inverse``) and K2 (``fused_admm_shared``) in it, and the
 record's numbers under ``record``; every sample's (t, scenario, ticks
@@ -41,6 +44,9 @@ def main(argv=None) -> int:
     ap.add_argument("--seconds", type=float, default=2.5)
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--sample-every", type=int, default=3)
+    ap.add_argument("--walk-after", type=float, default=1.0,
+                    help="seconds standing before the walk (the record's "
+                    "1.0; another value gives a second trajectory)")
     ap.add_argument("--backend", default="amortized",
                     help="comma-separated, of: " + ", ".join(KEYS))
     ap.add_argument("--out", default=str(ROOT / "build" /
@@ -62,16 +68,18 @@ def main(argv=None) -> int:
         kernels.reset_launches()
         t0 = time.perf_counter()
         rep = golden.run_amortized_gate(
-            args.seconds, args.batch, args.sample_every, backend=backend,
-            workers=args.workers, verbose=True, device=args.device,
+            args.seconds, args.batch, args.sample_every, args.walk_after,
+            backend=backend, workers=args.workers, verbose=True,
+            device=args.device,
             detail_path=str(out.with_name(f"{out.stem}_{backend}.npz")))
         rep["wall_s"] = time.perf_counter() - t0
         rep["launches"] = {k: kernels.launches[k] for k in LAUNCHED}
         rep["config"] = (f"gazebo_mpc flat trot 0.3 m/s, batched "
                          f"'{backend}' route (bench schedule, capacities "
                          f"scaled to batch {args.batch}), {args.seconds} "
-                         f"s, walk from 1 s, staggered phases, sampled "
-                         f"every {args.sample_every} ticks from the onset")
+                         f"s, walk from {args.walk_after} s, staggered "
+                         f"phases, sampled every {args.sample_every} ticks "
+                         f"from the onset")
         rep["record"] = record(KEYS[backend])
         report[KEYS[backend]] = rep
         print(f"{KEYS[backend]}: {json.dumps(rep)}", flush=True)

@@ -12,7 +12,8 @@ Phases, in order:
    nvcc process each, all at once; ptxas registers and spills logged by
    kernel), and the occupancy of the register kernel of
    ``csrc/inverse_t.cu`` that K1 and K3 launch at n = 32, 64, 66 and 120
-   (resident blocks by CUDA's calculator, registers, spill bytes);
+   and of ``csrc/gj_rank.cu``'s register tile (K6d, K6e) at n = 32 and
+   120 (resident blocks by CUDA's calculator, registers, spill bytes);
 3. the kernels against their plain PyTorch versions on the operands of a
    real B = 1024 trot tick, at every shape a driven route gives them:
    - K1 (Gauss-Jordan KKT inverse, the "diag - 1" rule set of
@@ -50,10 +51,13 @@ Phases, in order:
      version at the base: the same NaN pattern, the finite entries within
      1e-5 of their scale; its finite share and ||MX - I||_max reported;
    - K6b-K6f (one-array, [M | I], rank-r panel and corrected rank-r panel
-     Gauss-Jordan, batch-leading sweep) at (1024, 120), K6d at rank 2 and
-     K6e at rank 8, and at (64, 30) with rank 4 (padded to 32 pivots), bit
-     for bit, ||MX - I||_max reported; K6f against the batch-last sweep
-     kernel with ``sym_col``, bit for bit;
+     Gauss-Jordan, batch-leading sweep) at (1024, 120) and (64, 30), K6d
+     at ranks 2 and 4 and K6e at 8 and 4 at both (padded to 32 pivots at
+     ranks 4 and 8), bit for bit, ||MX - I||_max reported; K6d's and
+     K6e's register tile beside ``torch.linalg.inv`` at (1024, 120),
+     timed in turns, and the wide tier past the tile, at (64, 136), bit
+     for bit; K6f against the batch-last sweep kernel with ``sym_col``,
+     bit for bit;
 4. the routes at B = 1024 on ``gazebo_mpc`` with the bench schedule: the
    bench warm-up (120 stand and 380 trot ticks on 'gj'), then, each from
    a copy of that one warmed state, 'amortized' and the bench's 'full'
@@ -78,10 +82,13 @@ Phases, in order:
    small batch is then run through the same first trot ticks on the card
    and on the CPU (plain versions), which must agree in their torques,
    forces, contacts and carried controller state: on 'gj', 'amortized',
-   'full', 'chol', 'sweep_t', 'gj_t', 'xla' (with ``torch.linalg.inv``
-   and with K1) and ``control_tick`` in both modes from one state, on the
+   'chol', 'sweep_t', 'gj_t', 'xla' (with ``torch.linalg.inv`` and with
+   K1) and ``control_tick`` in both modes from one state, on 'full', the
    reduced tier and the legacy 'pallas' route (K1 and K4) tick by tick
-   from the card's state;
+   from the card's state; and 'full' free for 3 ticks against the CPU
+   with K2's plain version summing the x-update as the kernel does
+   (Dot2), the plain CPU's and the card's distances from K2's iterations
+   in float64 reported beside;
 5. the scripts' paths and kernels: the port's scripts as a user runs
    them, the launch counts set to 0 before each and read after:
    ``micro_admm`` (S1, four variants x unroll 1 and 4 at B = 1024, each
@@ -176,6 +183,8 @@ K5, K6G = "batched_chol_linv", "batched_inverse_T"
 K6S = "batched_inverse_sweep_T"
 K6B, K6C = "batched_inverse_inplace", "batched_inverse_combined"
 K6D, K6E = "batched_inverse_rank", "batched_inverse_rank_masked"
+# the ranks the component profile gives K6d and K6e (runtime/components.py)
+K6D_RANKS, K6E_RANKS = (2, 4), (8, 4)
 K6F = "batched_inverse_spd"
 # the CUDA kernels each route's profile reports by name: label -> parts
 # of the profiler's name, any of which marks it: K2's two
@@ -222,20 +231,28 @@ UNHELD_ALIVE = ("schur",)
 # the small card-vs-CPU check: route -> (tick keyword arguments, whether
 # each CPU tick starts from the card's state). Below B = 160 the big
 # bucket would hold the whole batch, so the reduced tier gets one of 2.
-# The reduced tier runs tick by tick from the card's state: its rescued
-# stepsize is estimated from residuals at the float32 rounding floor and
-# accepted by comparing such residuals, so over free-running ticks the
-# two devices part by more than the limits (PERF.md, PR 2); the carried
-# state each tick writes is compared too, so a fault in it still shows.
-# So does the legacy route: free-running, its torques parted by 4.97e-3
-# N m of the 5e-3 limit after 3 ticks on an H100 (K4 sums A in another
-# order than the plain version's einsum, and the trot amplifies it;
-# PERF.md), a margin that another host's CPU rounding could eat.
+# Both 'reduced_admm' routes, the reduced tier and 'full', run tick by
+# tick from the card's state: their rescued stepsize is estimated from
+# residuals at the float32 rounding floor and accepted by comparing such
+# residuals, so over free-running ticks a change in a sum's order grows
+# past the limits (PERF.md, PR 2); the carried state each tick writes is
+# compared too, so a fault in it still shows. 'full' also runs free
+# (``small_full_free``), against the CPU with K2's plain version summing
+# the x-update as the kernel does (Dot2), and must be nearer K2's
+# iterations in float64 than the plain float32 CPU, which sums it as one
+# chain (after 3 free ticks on an H100 80GB HBM3 at 700 W: torques
+# 2.72e-3 against 1.38e-2 N m from float64, 3.89e-3 from the Dot2 CPU,
+# 1.11e-2 from the plain CPU; PERF.md §6, PR 11).
+# The legacy route runs tick by tick too: free-running, its torques
+# parted by 4.97e-3 N m of the 5e-3 limit after 3 ticks on an H100 (K4
+# sums A in another order than the plain version's einsum, and the trot
+# amplifies it; PERF.md), a margin that another host's CPU rounding
+# could eat.
 # The control_tick entries hold config overrides, not tick arguments
 SMALL_ROUTES = {
     "gj": (GJ_KW, False),
     "amortized": (dict(AMORTIZED_KW, kkt_amortize_capacity=2), False),
-    "full": (FULL_KW, False),
+    "full": (FULL_KW, True),
     "reduced_tier": (dict(TIER_KW, kkt_big_capacity=2), True),
     "pallas": (LEGACY_KW, True),
     "chol": (CHOL_KW, False),
@@ -279,6 +296,9 @@ SMALL_WARM_Y_REL = 1e-3      # the carried dual, of its largest entry
 # rounding floor, so it is held only to a factor; a fault shows as a
 # jump across its 1000x clamp band
 SMALL_RHO_FACTOR = 4.0
+SMALL_LIMITS = dict(torque=SMALL_TQ_TOL, force=SMALL_F_TOL,
+                    warm_x=SMALL_WARM_X_TOL, warm_y_rel=SMALL_WARM_Y_REL,
+                    rho_factor=SMALL_RHO_FACTOR)
 CONVERGED_MIN = 0.99   # bench.py's rule: throughput counts at solver accuracy
 
 S1, S2 = "micro_admm", "mosaic_probes"
@@ -834,40 +854,39 @@ def inverse_designs(port, m, rounds: int = 2):
 
 def retired_rows(port, m):
     """K6b-K6f against their plain versions, bit for bit, at (1024, 120)
-    on the KKT batch (K6d at rank 2, K6e at rank 8: the JAX defaults) and
-    at (64, 30), a leading block of it, with rank 4 (both padded to 32
-    pivots); ||MX - I||_max reported. Then K6f against the batch-last
-    sweep kernel with ``sym_col``, which shares its arithmetic."""
+    on the KKT batch and at (64, 30), a leading block of it; K6d at ranks
+    2 (the JAX default) and 4, K6e at 8 (its default) and 4, the ranks
+    the component profile gives them, each at both shapes (n = 30 padded
+    to 32 pivots at ranks 4 and 8); ||MX - I||_max reported. Then K6d's
+    and K6e's register tile beside ``torch.linalg.inv`` and the wide tier
+    past the tile (``rank_designs``), and K6f
+    against the batch-last sweep kernel with ``sym_col``, which shares
+    its arithmetic."""
     import torch
     r = port.kernels_retired
     small = m[:64, :30, :30].contiguous()
     rank = lambda fn, k: (lambda x: fn(x, rank=k))
     cases = {
-        K6B: (r.batched_inverse_inplace, r.batched_inverse_inplace_plain,
-              r.batched_inverse_inplace, r.batched_inverse_inplace_plain),
-        K6C: (r.batched_inverse_combined, r.batched_inverse_combined_plain,
-              r.batched_inverse_combined, r.batched_inverse_combined_plain),
-        K6D: (rank(r.batched_inverse_rank, 2),
-              rank(r.batched_inverse_rank_plain, 2),
-              rank(r.batched_inverse_rank, 4),
-              rank(r.batched_inverse_rank_plain, 4)),
-        K6E: (rank(r.batched_inverse_rank_masked, 8),
-              rank(r.batched_inverse_rank_masked_plain, 8),
-              rank(r.batched_inverse_rank_masked, 4),
-              rank(r.batched_inverse_rank_masked_plain, 4)),
-        K6F: (r.batched_inverse_spd, r.batched_inverse_spd_plain,
-              r.batched_inverse_spd, r.batched_inverse_spd_plain),
+        K6B: [("K6b", r.batched_inverse_inplace,
+               r.batched_inverse_inplace_plain)],
+        K6C: [("K6c", r.batched_inverse_combined,
+               r.batched_inverse_combined_plain)],
+        K6D: [(f"K6d r={k}", rank(r.batched_inverse_rank, k),
+               rank(r.batched_inverse_rank_plain, k)) for k in K6D_RANKS],
+        K6E: [(f"K6e r={k}", rank(r.batched_inverse_rank_masked, k),
+               rank(r.batched_inverse_rank_masked_plain, k))
+              for k in K6E_RANKS],
+        K6F: [("K6f", r.batched_inverse_spd, r.batched_inverse_spd_plain)],
     }
-    labels = {K6B: "K6b", K6C: "K6c", K6D: "K6d r=2 / 4", K6E: "K6e r=8 / 4",
-              K6F: "K6f"}
     out = {}
-    for name, (fn, plain, fn_small, plain_small) in cases.items():
+    for name, variants in cases.items():
         flops = sweep_flops if name == K6F else gj_flops
-        out[name] = (inverse_rows(port, labels[name], m, (BATCH,), fn, plain,
-                                  flops=flops, resid_tol=None)
-                     + inverse_rows(port, labels[name], small, (64,),
-                                    fn_small, plain_small, flops=flops,
-                                    resid_tol=None))
+        out[name] = []
+        for label, fn, plain in variants:
+            for x, b in ((m, BATCH), (small, 64)):
+                out[name] += inverse_rows(port, label, x, (b,), fn, plain,
+                                          flops=flops, resid_tol=None)
+    out["rank_designs"] = rank_designs(port, m)
     x = r.batched_inverse_spd(m)
     ref = r.batched_inverse_sweep_T(m, sym_col=True)
     torch.cuda.synchronize()
@@ -878,6 +897,50 @@ def retired_rows(port, m):
     if not equal:
         raise AssertionError("K6f differs from the sym_col sweep kernel")
     return out
+
+
+def rank_designs(port, m, rounds: int = 2):
+    """K6d and K6e at each profiled rank on the register tile beside
+    ``torch.linalg.inv`` on the same batch, timed in turns within this
+    call, ``rounds`` times (``tests/compare_source.py`` times the tile
+    against the design it replaced); and at (64, 136), past the tile, the
+    wide tier bit-equal to the plain version. The mean ms of each."""
+    import torch
+    r = port.kernels_retired
+    fns = {}
+    for label, entry, plain, ranks in (
+            ("K6d", r.batched_inverse_rank, r.batched_inverse_rank_plain,
+             K6D_RANKS),
+            ("K6e", r.batched_inverse_rank_masked,
+             r.batched_inverse_rank_masked_plain, K6E_RANKS)):
+        for k in ranks:
+            fns[f"{label} r={k} tile"] = (
+                lambda e, k: lambda x: e(x, rank=k))(entry, k)
+    fns["torch.linalg.inv"] = torch.linalg.inv
+    # past the tile, the entry points run the wide tier: n = 136 (a
+    # multiple of 2, 4 and 8), the KKT block bordered by identity
+    big = torch.eye(136, device=m.device).repeat(64, 1, 1)
+    big[:, :120, :120] = m[:64]
+    for label, entry, plain, ranks in (
+            ("K6d", r.batched_inverse_rank, r.batched_inverse_rank_plain,
+             K6D_RANKS),
+            ("K6e", r.batched_inverse_rank_masked,
+             r.batched_inverse_rank_masked_plain, K6E_RANKS)):
+        for k in ranks:
+            x = entry(big, rank=k)
+            torch.cuda.synchronize()
+            if not torch.equal(x, plain(big, rank=k)):
+                raise AssertionError(f"{label} r={k} at (64, 136) differs "
+                                     "from its plain version")
+    times = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            times[name].append(cuda_ms(lambda: fn(m), 10))
+    ms = {name: statistics.fmean(t) for name, t in times.items()}
+    log(f"  K6d / K6e at {tuple(m.shape)}, the wide tier at (64, 136) "
+        "bit-equal to the plain version; in turns: "
+        + ", ".join(f"{name} {v:.4f} ms" for name, v in ms.items()))
+    return dict(ms=ms)
 
 
 def clone(port, tree):
@@ -1134,24 +1197,66 @@ def profile_ticks(port, route, step, carry, ticks: int = 5):
                 top=[(key[:60], ms / ticks) for key, ms, _ in rows[:4]])
 
 
+def small_start(port, device):
+    """The small batch stood up for 20 ticks on the CPU, and the tick's
+    fixed arguments on the card and on the CPU: (cfg, carry, env)."""
+    import torch
+    cpu = torch.device("cpu")
+    cfg, pb, terr, carry, joy_s, joy_w = setup(port, SMALL_BATCH, cpu)
+    carry = warm(port, cfg, pb, terr, carry, joy_s, joy_w, cpu, 20, 0)
+    env = {dev: (to_device(port, pb, dev), to_device(port, terr, dev),
+                 to_device(port, joy_w, dev)) for dev in (device, cpu)}
+    return cfg, carry, env
+
+
+def to_device(port, tree, dev):
+    return port.tensors.tree_map(lambda a: a.to(dev), tree)
+
+
+def small_diff(route, tick, card, host) -> dict:
+    """One small tick's card-vs-CPU distances (``SMALL_LIMITS``' keys);
+    raises if the card's torques are not finite or a discrete leaf of
+    the carried state or the contacts differ."""
+    import torch
+    diff = lambda a, b: float((a.cpu() - b.cpu()).abs().max())
+    if not bool(torch.isfinite(card.cs.joint_torques).all()):
+        raise AssertionError(f"small {route}: torques not finite")
+    for name in SMALL_EXACT:
+        if not torch.equal(getattr(card.mem, name).cpu(),
+                           getattr(host.mem, name).cpu()):
+            raise AssertionError(f"small {route} tick {tick}: {name} "
+                                 "differs")
+    if not torch.equal(card.cs.contacts.cpu(), host.cs.contacts.cpu()):
+        raise AssertionError(f"small {route} tick {tick}: contacts differ")
+    ratio = card.mem.mpc_rho.cpu() / host.mem.mpc_rho.cpu()
+    return dict(
+        torque=diff(card.cs.joint_torques, host.cs.joint_torques),
+        force=diff(card.cs.foot_forces_grf, host.cs.foot_forces_grf),
+        warm_x=diff(card.mem.mpc_warm_x, host.mem.mpc_warm_x),
+        warm_y_rel=diff(card.mem.mpc_warm_y, host.mem.mpc_warm_y)
+        / float(host.mem.mpc_warm_y.abs().max()),
+        rho_factor=float(torch.maximum(ratio, 1.0 / ratio).max()))
+
+
+def small_verdict(route, got, note=""):
+    log(f"  small B={SMALL_BATCH} {route}{note}: card vs CPU max |d| "
+        + ", ".join(f"{key} {v:.3e} (tol {SMALL_LIMITS[key]})"
+                    for key, v in got.items())
+        + f"; {', '.join(SMALL_EXACT)} and contacts equal")
+    if any(v > SMALL_LIMITS[key] for key, v in got.items()):
+        raise AssertionError(f"small {route}{note}: {got}")
+
+
 def phase_small(port, device):
     """A small batch stood up for 20 ticks on the CPU, then copied to the
     card: 3 trot ticks on each route there (CUDA kernels) and on the CPU
     (plain versions), compared tick by tick (torques, forces, contacts
     and the carried controller state); from that one state, or, on the
     routes that say so, each CPU tick from the card's state before
-    it."""
+    it. Then 'full' free-running (``small_full_free``)."""
     import torch
     cpu = torch.device("cpu")
-    cfg, pb, terr, carry, joy_s, joy_w = setup(port, SMALL_BATCH, cpu)
-    carry = warm(port, cfg, pb, terr, carry, joy_s, joy_w, cpu, 20, 0)
-    to = lambda tree, dev: port.tensors.tree_map(lambda a: a.to(dev), tree)
-    env = {dev: (to(pb, dev), to(terr, dev), to(joy_w, dev))
-           for dev in (device, cpu)}
-    diff = lambda a, b: float((a.cpu() - b).abs().max())
-    limits = dict(torque=SMALL_TQ_TOL, force=SMALL_F_TOL,
-                  warm_x=SMALL_WARM_X_TOL, warm_y_rel=SMALL_WARM_Y_REL,
-                  rho_factor=SMALL_RHO_FACTOR)
+    cfg, carry, env = small_start(port, device)
     worst = {}
     for route, (kw, synced) in SMALL_ROUTES.items():
         def step(dev, c, kc):
@@ -1166,42 +1271,146 @@ def phase_small(port, device):
             return port.batched.batched_closed_loop_step(
                 cfg, p, tr, c, jw, cfg.control_dt, device=dev, **kw), kc
 
-        state = {dev: (to(carry, dev), port.batched.make_kkt_carry(
-            cfg, SMALL_BATCH, device=dev)) for dev in (device, cpu)}
-        got = dict.fromkeys(limits, 0.0)
+        state = {dev: (to_device(port, carry, dev),
+                       port.batched.make_kkt_carry(cfg, SMALL_BATCH,
+                                                   device=dev))
+                 for dev in (device, cpu)}
+        got = dict.fromkeys(SMALL_LIMITS, 0.0)
         for tick in range(3):
             if synced:
-                state[cpu] = (to(state[device][0], cpu), state[cpu][1])
+                state[cpu] = (to_device(port, state[device][0], cpu),
+                              state[cpu][1])
             state = {dev: step(dev, *state[dev]) for dev in state}
-            card, host = state[device][0], state[cpu][0]
-            if not bool(torch.isfinite(card.cs.joint_torques).all()):
-                raise AssertionError(f"small {route}: torques not finite")
-            for name in SMALL_EXACT:
-                if not torch.equal(getattr(card.mem, name).cpu(),
-                                   getattr(host.mem, name)):
-                    raise AssertionError(f"small {route} tick {tick}: "
-                                         f"{name} differs")
-            if not torch.equal(card.cs.contacts.cpu(), host.cs.contacts):
-                raise AssertionError(f"small {route} tick {tick}: contacts "
-                                     "differ")
-            ratio = card.mem.mpc_rho.cpu() / host.mem.mpc_rho
-            now = dict(
-                torque=diff(card.cs.joint_torques, host.cs.joint_torques),
-                force=diff(card.cs.foot_forces_grf, host.cs.foot_forces_grf),
-                warm_x=diff(card.mem.mpc_warm_x, host.mem.mpc_warm_x),
-                warm_y_rel=diff(card.mem.mpc_warm_y, host.mem.mpc_warm_y)
-                / float(host.mem.mpc_warm_y.abs().max()),
-                rho_factor=float(torch.maximum(ratio, 1.0 / ratio).max()))
+            now = small_diff(route, tick, state[device][0], state[cpu][0])
             got = {key: max(v, now[key]) for key, v in got.items()}
-        log(f"  small B={SMALL_BATCH} {route}"
-            f"{' (tick by tick)' if synced else ''}: card vs CPU max |d| "
-            + ", ".join(f"{key} {v:.3e} (tol {limits[key]})"
-                        for key, v in got.items())
-            + f"; {', '.join(SMALL_EXACT)} and contacts equal")
-        if any(v > limits[key] for key, v in got.items()):
-            raise AssertionError(f"small {route}: {got}")
+        small_verdict(route, got, " (tick by tick)" if synced else "")
         worst[route] = got
+    worst["full_free"] = small_full_free(port, device, cfg, carry, env)
     return worst
+
+
+def _k2_iterations(xt_of):
+    """K2's plain iterations (``kernels.fused_admm_shared_plain``) with
+    the x-update minv' rhs computed by ``xt_of(minv, rhs)``."""
+    import torch
+
+    def run(a0, a1, minv, mu, d, e, qs, ls, us, rho_vec, x0, y0, z0, *,
+            iters, sigma, alpha):
+        me = mu[:, None] * e
+        inv_rho = 1.0 / rho_vec
+        x, y, z = x0, y0, z0
+        for _ in range(iters):
+            w = rho_vec * z - y
+            atw = (e * w) @ a0 + (me * w) @ a1
+            rhs = sigma * x - qs + d * atw
+            xt = xt_of(minv, rhs)
+            x1 = alpha * xt + (1.0 - alpha) * x
+            xd = d * xt
+            ax = e * (xd @ a0.T) + me * (xd @ a1.T)
+            zp = alpha * ax + (1.0 - alpha) * z
+            z1 = torch.clamp(zp + y * inv_rho, ls, us)
+            y = y + rho_vec * (zp - z1)
+            x, z = x1, z1
+        return x, y, z
+    return run
+
+
+def dot2_xt(minv, rhs):
+    """minv' rhs as K2's ``struct Dot2`` sums it (csrc/fused_admm_shared.cu),
+    one float32 operation for each of its own: in ascending row of minv,
+    each product's error exact (the float32 product's distance from the
+    float64 one, a float32 itself), each addition's by TwoSum, the errors
+    summed beside the running sum and added once at the end."""
+    import torch
+    p = torch.zeros_like(rhs)
+    s = torch.zeros_like(rhs)
+    for i in range(minv.shape[1]):
+        a, b = minv[:, i], rhs[:, i:i + 1]
+        h = a * b
+        r = (a.double() * b.double() - h.double()).float()
+        t = p + h
+        z = t - p
+        s = s + ((p - (t - z)) + (h - z) + r)
+        p = t
+    return p + s
+
+
+def k2_cpu_ways(plain):
+    """The ways the free-running witness runs K2's plain version on the
+    CPU: as it is (one float32 chain a column), with the x-update summed
+    as the kernel sums it, and every iteration in float64 (inputs
+    widened, outputs rounded once)."""
+    import torch
+    return {
+        "plain": plain,
+        "dot2": _k2_iterations(dot2_xt),
+        "k64": lambda *args, **kw: tuple(o.float() for o in plain(
+            *(a.double() if torch.is_tensor(a) else a for a in args),
+            **{k: v.double() if torch.is_tensor(v) else v
+               for k, v in kw.items()})),
+    }
+
+
+def small_full_free(port, device, cfg, carry, env):
+    """'full' free-running for 3 ticks from the small batch's state: on
+    the card, and on the CPU with K2's plain version each way of
+    ``k2_cpu_ways``. The card must stay within the small limits of the
+    CPU that sums the x-update as K2 does ('dot2'), and nearer the float64
+    iterations ('k64') in torques and forces than the plain float32 CPU
+    is: so the drift between the card and the plain CPU is the plain
+    chain's rounding, not K2's."""
+    import torch
+    cpu = torch.device("cpu")
+    k = port.kernels
+    plain = k.fused_admm_shared_plain
+
+    def run(dev, way=None):
+        p, tr, jw = env[dev]
+        c = to_device(port, carry, dev)
+        out = []
+        if way is not None:
+            k.fused_admm_shared_plain = k2_cpu_ways(plain)[way]
+        try:
+            for _ in range(3):
+                c = port.batched.batched_closed_loop_step(
+                    cfg, p, tr, c, jw, cfg.control_dt, device=dev, **FULL_KW)
+                out.append(to_device(port, c, cpu))
+        finally:
+            k.fused_admm_shared_plain = plain
+        return out
+
+    runs = {"card": run(device)}
+    runs.update({way: run(cpu, way) for way in ("plain", "dot2", "k64")})
+    pairs = {}
+    for a, b in (("card", "dot2"), ("card", "plain"), ("card", "k64"),
+                 ("plain", "k64"), ("dot2", "k64")):
+        got = dict.fromkeys(SMALL_LIMITS, 0.0)
+        for tick, (x, y) in enumerate(zip(runs[a], runs[b])):
+            try:
+                now = small_diff(f"full {a} vs {b}", tick, x, y)
+            except AssertionError as err:
+                if (a, b) == ("card", "dot2"):
+                    raise
+                log(f"  small full free {a} vs {b}: {err}")
+                now = dict.fromkeys(SMALL_LIMITS, float("inf"))
+            got = {key: max(v, now[key]) for key, v in got.items()}
+        pairs[f"{a} vs {b}"] = got
+        if (a, b) != ("card", "dot2"):
+            log(f"  small B={SMALL_BATCH} full free, {a} vs {b}: max |d| "
+                + ", ".join(f"{key} {v:.3e}" for key, v in got.items()))
+    small_verdict("full", pairs["card vs dot2"],
+                  " (free, the CPU's x-update in K2's Dot2 order)")
+    nearer = {key: (pairs["card vs k64"][key], pairs["plain vs k64"][key])
+              for key in ("torque", "force")}
+    log(f"  small B={SMALL_BATCH} full free, from K2's iterations in "
+        "float64, the card / the plain float32 CPU: "
+        + ", ".join(f"{key} {a:.3e} / {b:.3e}"
+                    for key, (a, b) in nearer.items()))
+    if any(a >= b for a, b in nearer.values()):
+        raise AssertionError(f"small full free: the card is not nearer K2's "
+                             f"float64 iterations than the plain CPU: "
+                             f"{nearer}")
+    return pairs
 
 
 # --- 5: the scripts' kernels (S1, S2) and paths ---------------------------
@@ -1765,6 +1974,14 @@ def main() -> int:
                  for n in (32, 64, 66, 120)}
     log(f"  inverse_t register kernel (K1, K3) by n: blocks resident per "
         f"SM (occupancy calculator), registers, spill bytes: {occupancy}")
+    rank_occupancy = {
+        f"{label} r={k} n={n}": port.kernels_retired.rank_reg_occupancy(
+            n, k, masked)
+        for label, masked, ranks in (("K6d", False, K6D_RANKS),
+                                     ("K6e", True, K6E_RANKS))
+        for k in ranks for n in (32, 120)}
+    log(f"  gj_rank register tile (K6d, K6e): blocks resident per SM, "
+        f"registers, spill bytes: {rank_occupancy}")
 
     log("[3] kernels vs plain")
     rows = phase_kernels(port, device)
@@ -1848,6 +2065,13 @@ def main() -> int:
         replaces=f"{RETIRED}:41", **rows["k6a"])}
     kernels[4]["hybrid"] = rows["hybrid"]
     kernels[5]["designs_in_turns"] = rows["k6_designs"]
+    for entry, label in ((kernels[9], "K6d"), (kernels[10], "K6e")):
+        entry["occupancy_per_sm"] = {
+            key: v for key, v in rank_occupancy.items()
+            if key.startswith(label)}
+        entry["designs_in_turns"] = {
+            key: v for key, v in rows["rank_designs"]["ms"].items()
+            if key.startswith(label) or key == "torch.linalg.inv"}
     kernels[6]["shared_by"] = {
         "K6h batched_inverse_sweep_T": f"{RETIRED}:902",
         "K6i batched_inverse_sweep_T_chunked": f"{RETIRED}:638",

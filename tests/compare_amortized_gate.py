@@ -36,10 +36,14 @@ against the float32 floor, in seven commands:
   replaced ones). K1 is bit-equal to its plain version, so ``plain K1``
   must repeat the gate to the digit; K2 sums in another order, so
   ``plain K1,K2`` is a second trajectory of the same arithmetic.
-- ``shadow``: the gate on the kernels, every shared-basis solve also
-  run with K2's plain version on the same operands, the two exit
-  tests' verdicts and residuals compared (``shadow_gate``); on the card
-  by default.
+  ``--walk-after S --seconds T`` moves the walk's onset (the runner's
+  options of the same names), for the same comparison on another
+  trajectory.
+- ``shadow [--kernel K4]``: the gate on the kernels, every shared-basis
+  solve also run with K2's plain version on the same operands, the two
+  exit tests' verdicts and residuals compared (``shadow_gate``); with
+  ``--kernel K4`` the gate's batch on the legacy route instead, each
+  solve also run with K4's plain version; on the card by default.
 - ``orders``: K2's operands from the gate's rollout on the CPU, run
   through its plain iterations with the x-update's sum (minv' rhs) in
   four orders, each against float64 (``xt_orders``). CPU only.
@@ -84,7 +88,12 @@ WAYS = ("card", "cpu32", "cpu64", "jax")
 CPU = torch.device("cpu")
 # name -> (the module attribute the route calls, its plain version)
 PLAIN = {"K1": (tb, "batched_inverse", kernels.batched_inverse_plain),
-         "K2": (qpx, "fused_admm_shared", kernels.fused_admm_shared_plain)}
+         "K2": (qpx, "fused_admm_shared", kernels.fused_admm_shared_plain),
+         "K4": (qpx, "fused_admm", kernels.fused_admm_plain)}
+# the legacy route (K1 and K4, per-scenario A, no rescue) as chip_smoke.py
+# drives it; its kkt_backend only tells the gate's tick that no KKT carry
+# moves
+LEGACY_KW = dict(admm_backend="pallas", use_pallas=True, kkt_backend="gj")
 
 
 def bench_gate_args(backend: str, batch: int):
@@ -158,12 +167,15 @@ def plain_kernels(names):
             setattr(PLAIN[name][0], PLAIN[name][1], fn)
 
 
-def plain_gate(names, workers, device="cuda") -> dict:
-    """The gate at the record's protocol with ``names`` (of PLAIN) run
-    by their plain versions on the route."""
+def plain_gate(names, workers, device="cuda", seconds=2.5,
+               walk_after_s=1.0) -> dict:
+    """The gate at the record's protocol (or, with ``walk_after_s``, on
+    another trajectory) with ``names`` (of PLAIN) run by their plain
+    versions on the route."""
     kernels.reset_launches()
     with plain_kernels(names):
-        rep = golden.run_amortized_gate(workers=workers, device=device)
+        rep = golden.run_amortized_gate(seconds, walk_after_s=walk_after_s,
+                                        workers=workers, device=device)
     rep["launches"] = {PLAIN[n][1]: kernels.launches[PLAIN[n][1]]
                        for n in PLAIN}
     rep["plain"] = list(names)
@@ -217,30 +229,43 @@ def paired_gate(workers, device="cuda", every=3, base="kernels") -> dict:
                 mean_dev_gap_N=float((kern - plain).mean()))
 
 
-def shadow_gate(device="cuda") -> dict:
-    """The gate's rollout on the kernels, every shared-basis solve
+def shadow_gate(device="cuda", kernel="K2") -> dict:
+    """The gate's rollout on the kernels, every solve through ``kernel``
+    also run with its plain version on the same operands. K2: the
+    amortized gate, each shared-basis solve
     (``qp.admm_solve_fixed_batched_shared``: K2, then the exit test on
-    its output) also run with K2's plain version on the same operands:
-    by (B, iterations) and before and after the walk onset, how often
-    the exit test's verdict differs each way, the median ratio of the
-    kernel's residuals to the plain version's (the primal one also
-    recomputed in float64 from each solution), and the largest
-    difference of x and z over the plain solution's largest entry."""
-    gate, carry, kc = golden.gate_start(device=device)
-    solve, stats, tick = qpx.admm_solve_fixed_batched_shared, {}, [0]
+    its output). K4: the gate's batch, stagger and joystick on the legacy
+    route (``LEGACY_KW``), each per-scenario-A solve
+    (``qp.admm_solve_fixed_batched``: K4, then the exit test). By (B,
+    iterations) and before and after the walk onset: how often the exit
+    test's verdict differs each way, the median ratio of the kernel's
+    residuals to the plain version's (the primal one also recomputed in
+    float64 from each solution), and the largest difference of x and z
+    over the plain solution's largest entry."""
+    gate, carry, kc = golden.gate_start(
+        device=device, backend="amortized" if kernel == "K2" else "gj")
+    if kernel == "K4":
+        gate = dataclasses.replace(gate, kw=LEGACY_KW)
+        name, iters_at = "admm_solve_fixed_batched", 5
+    else:
+        name, iters_at = "admm_solve_fixed_batched_shared", 7
+    solve, stats, tick = getattr(qpx, name), {}, [0]
 
-    def prim64(sol, a0, a1, mu):
+    def prim64(sol, args):
         """||A x - z||_inf of a solution (unscaled), in float64."""
-        x, a0, a1 = sol.x.double(), a0.double(), a1.double()
-        ax = x @ a0.T + mu.double()[:, None] * (x @ a1.T)
+        x = sol.x.double()
+        if kernel == "K4":
+            ax = torch.einsum("bmn,bn->bm", args[2].double(), x)
+        else:
+            a0, a1, mu = (a.double() for a in args[2:5])
+            ax = x @ a0.T + mu[:, None] * (x @ a1.T)
         return (ax - sol.z.double()).abs().amax(dim=1)
 
     def shadowed(*args, **kw):
         sol = solve(*args, **kw)
-        with plain_kernels(("K2",)):
+        with plain_kernels((kernel,)):
             ref = solve(*args, **kw)
-        a0, a1, mu = args[2:5]
-        key = (f"{sol.x.shape[0]}x{args[7]}",
+        key = (f"{sol.x.shape[0]}x{args[iters_at]}",
                "walk" if tick[0] >= gate.walk_after else "stand")
         st = stats.setdefault(key, dict(scenarios=0, conv_kernel_only=0,
                                         conv_plain_only=0, prim=[], dual=[],
@@ -250,21 +275,20 @@ def shadow_gate(device="cuda") -> dict:
         st["conv_plain_only"] += int((ref.converged & ~sol.converged).sum())
         st["prim"] += (sol.prim_res / ref.prim_res).tolist()
         st["dual"] += (sol.dual_res / ref.dual_res).tolist()
-        st["prim64"] += (prim64(sol, a0, a1, mu)
-                         / prim64(ref, a0, a1, mu)).tolist()
+        st["prim64"] += (prim64(sol, args) / prim64(ref, args)).tolist()
         for name in ("x", "z"):
             a, b = getattr(sol, name), getattr(ref, name)
             st[f"{name}_rel"] = max(st[f"{name}_rel"], float(
                 (a - b).abs().max() / b.abs().max()))
         return sol
 
-    qpx.admm_solve_fixed_batched_shared = shadowed
+    setattr(qpx, name, shadowed)
     try:
         for t in range(gate.n_steps):
             tick[0] = t
             carry, kc, _ = gate.tick(carry, kc, t)
     finally:
-        qpx.admm_solve_fixed_batched_shared = solve
+        setattr(qpx, name, solve)
     for st in stats.values():
         for k in ("prim", "dual", "prim64"):
             v = np.array(st.pop(k))
@@ -538,9 +562,13 @@ def main(argv=None) -> int:
     pln = sub.add_parser("plain")
     pln.add_argument("kernels", help="K1 or K1,K2")
     pln.add_argument("--device", default="cuda")
+    pln.add_argument("--seconds", type=float, default=2.5)
+    pln.add_argument("--walk-after", type=float, default=1.0)
     pln.add_argument("--workers", type=int,
                      default=max(1, (os.cpu_count() or 1) - 1))
-    sub.add_parser("shadow").add_argument("--device", default="cuda")
+    shd = sub.add_parser("shadow")
+    shd.add_argument("--device", default="cuda")
+    shd.add_argument("--kernel", default="K2", choices=("K2", "K4"))
     sub.add_parser("orders")
     par = sub.add_parser("paired")
     par.add_argument("--base", default="kernels",
@@ -556,12 +584,13 @@ def main(argv=None) -> int:
         names = args.kernels.split(",")
         if not names or set(names) - set(PLAIN):
             ap.error(f"kernels are of {sorted(PLAIN)}")
-        print(json.dumps(plain_gate(names, args.workers, args.device)))
+        print(json.dumps(plain_gate(names, args.workers, args.device,
+                                    args.seconds, args.walk_after)))
     elif args.cmd == "orders":
         torch.set_num_threads(4)
         print(json.dumps(xt_orders()))
     elif args.cmd == "shadow":
-        print(json.dumps(shadow_gate(args.device)))
+        print(json.dumps(shadow_gate(args.device, args.kernel)))
     elif args.cmd == "paired":
         print(json.dumps(paired_gate(args.workers, args.device,
                                      base=args.base)))

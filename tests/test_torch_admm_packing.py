@@ -17,7 +17,11 @@ lane sums and warp-shuffle tree wherever a row of A0 or A1 has at most
 one nonzero (the repository's basis). Each sum is
 an fmaf chain on the card; here ``_fma`` (an exact float64 product and
 sum, then float32) stands for it on both sides, so the comparison is of
-the order and the packing, not of one rounding rule against another. The
+the order and the packing, not of one rounding rule against another.
+The x-update's matvec is a compensated dot product (Dot2, modelled
+operation for operation by ``chip_smoke.dot2_xt``, which the card's
+free-running check also runs), held against float64 beside the plain
+ascending chain that it replaced. The
 whole 25-iteration model is held against the JAX kernel in interpret mode
 in ``tests/test_torch_kernels.py`` (its operands are built there). The
 CUDA kernel itself is held against its plain version on the card
@@ -30,6 +34,10 @@ import torch
 
 from a1_qp_mpc_controller_tpu_torch.models import srb
 from a1_qp_mpc_controller_tpu_torch.ops import kernels
+
+from chip_smoke import dot2_xt
+from test_torch_inverses import _spd
+from torch_parity import t
 
 B = 3
 
@@ -240,11 +248,21 @@ def test_a_products_match_dense_tree(name):
     assert torch.equal(list_sums(x, packed.row1), dense_a_sums(x, a1))
 
 
+def chain_rows(minv, rhs):
+    """minv' rhs as one ascending fmaf chain over minv's rows: the
+    x-update of K2's earlier design."""
+    xt = torch.zeros_like(rhs)
+    for i in range(minv.shape[1]):
+        xt = _fma(minv[:, i], rhs[:, i:i + 1], xt)
+    return xt
+
+
 def kernel_model(a0, a1, minv, mu, d, e, qs, ls, us, rho_vec, x0, y0, z0,
                  *, iters, sigma=1e-6, alpha=1.6):
     """The kernel's iterations in torch: the packed products in their
-    order, the matvec an ascending chain over minv's rows; the
-    elementwise updates as in the plain version."""
+    order, the matvec compensated in ascending row of minv
+    (``chip_smoke.dot2_xt``); the elementwise updates as in the plain
+    version."""
     packed = Packed(a0, a1)
     me = mu[:, None] * e
     inv_rho = 1.0 / rho_vec
@@ -253,9 +271,7 @@ def kernel_model(a0, a1, minv, mu, d, e, qs, ls, us, rho_vec, x0, y0, z0,
         w = rho_vec * z - y
         atw = list_sums(e * w, packed.col0) + list_sums(me * w, packed.col1)
         rhs = sigma * x - qs + d * atw
-        xt = torch.zeros_like(x)
-        for i in range(minv.shape[1]):
-            xt = _fma(minv[:, i], rhs[:, i:i + 1], xt)
+        xt = dot2_xt(minv, rhs)
         x = alpha * xt + (1.0 - alpha) * x
         xd = d * xt
         ax = e * list_sums(xd, packed.row0) + me * list_sums(xd, packed.row1)
@@ -266,17 +282,23 @@ def kernel_model(a0, a1, minv, mu, d, e, qs, ls, us, rho_vec, x0, y0, z0,
     return x, y, z
 
 
-def test_model_matches_plain_on_random_operands():
+@pytest.mark.parametrize("bounds", ["unclipped", "clipped"])
+def test_model_matches_plain_on_random_operands(bounds):
     """The model against ``fused_admm_shared_plain`` on dense random
     A0/A1 at (B, n, m) = (3, 30, 50), 25 iterations: the same update in
     another summation order, within K2's limit (1e-4 of each output's
-    scale)."""
+    scale). 'unclipped': bounds of 1 + |g| that no row reaches, so y is 0
+    in exact arithmetic after the first iteration (float64 gives 4e-18)
+    and is held to the scale of rho z, the term it would move by, not to
+    its own rounding noise. 'clipped': bounds 100 times tighter, so that
+    10-50% of the rows end clipped and y is held to its own scale."""
     a0, a1 = _dense_random(50, 30, 4)
     rng = np.random.default_rng(7)
     g = lambda *s: torch.tensor(rng.standard_normal(s), dtype=torch.float32)
     q = g(B, 30, 30)
     minv = torch.linalg.inv(q @ q.transpose(1, 2) + 30 * torch.eye(30))
-    ls, us = -1.0 - g(B, 50).abs(), 1.0 + g(B, 50).abs()
+    width = 1.0 if bounds == "unclipped" else 0.01
+    ls, us = -width * (1.0 + g(B, 50).abs()), width * (1.0 + g(B, 50).abs())
     ops = dict(a0=0.1 * a0, a1=0.1 * a1, minv=minv,
                mu=0.5 + 0.1 * g(B).abs(), d=1.0 + 0.1 * g(B, 30).abs(),
                e=1.0 + 0.1 * g(B, 50).abs(), qs=g(B, 30), ls=ls, us=us,
@@ -285,9 +307,35 @@ def test_model_matches_plain_on_random_operands():
     out = kernel_model(**ops, iters=25)
     ref = kernels.fused_admm_shared_plain(**ops, iters=25, sigma=1e-6,
                                           alpha=1.6)
+    clipped = float(((ref[2] <= ls) | (ref[2] >= us)).float().mean())
+    scale = dict(x=ref[0].abs().max(), y=ref[1].abs().max(),
+                 z=ref[2].abs().max())
+    if bounds == "unclipped":
+        assert clipped == 0.0, clipped
+        scale["y"] = (ops["rho_vec"] * ref[2]).abs().max()
+    else:
+        assert 0.1 <= clipped <= 0.5, clipped
     for name, o, r in zip("xyz", out, ref):
-        err = float((o - r).abs().max() / r.abs().max())
+        err = float((o - r).abs().max() / scale[name])
         assert err <= 1e-4, (name, err)
+
+
+def test_compensated_matvec_halves_the_chain_error():
+    """On inverses of the SPD batch of the inverse tests at the KKT size
+    (n = 120, B = 32) and a seeded right-hand side, the modelled Dot2
+    matvec against minv' rhs in float64 on the same float32 operands:
+    over the batch, the median of its largest error over a scenario's
+    largest |xt| is at most half the ascending chain's."""
+    b, n = 32, 120
+    minv = torch.linalg.inv(t(_spd(b, n)).double()).float()
+    rhs = torch.tensor(np.random.default_rng(8).standard_normal((b, n)),
+                       dtype=torch.float32)
+    ref = torch.einsum("bij,bi->bj", minv.double(), rhs.double())
+    scale = ref.abs().amax(dim=1)
+    err = {name: float(((fn(minv, rhs).double() - ref).abs().amax(dim=1)
+                        / scale).median())
+           for name, fn in (("dot2", dot2_xt), ("chain", chain_rows))}
+    assert err["dot2"] <= 0.5 * err["chain"], err
 
 
 def test_shared_memory_check_only_loosened():

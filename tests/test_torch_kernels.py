@@ -124,7 +124,7 @@ def test_k2_plain_matches_pallas_interpret(jax_tick, rng):
 def test_k2_packed_model_matches_pallas_interpret(jax_tick, rng):
     """The model of the packed kernel's arithmetic
     (``tests/test_torch_admm_packing.py``: the A-products from the packed
-    nonzero lists, the matvec an ascending chain) against the Pallas
+    nonzero lists, the matvec a compensated sum) against the Pallas
     kernel in interpret mode, on the operands and warm start of the test
     above, at its limit."""
     import jax.numpy as jnp
