@@ -6,8 +6,8 @@
 // :428 fused_admm_shared (body _fused_admm_shared_kernel, :344): same
 // operands, same update, all `iters` iterations inside one launch:
 //   w   = rho z - y
-//   rhs = sigma x - q + d (A0'(e w) + A1'(mu e w))
-//   xt  = minv' rhs            (a reduction over minv's rows, compensated)
+//   rhs = (sigma x - q) + d (A0'(e w) + A1'(mu e w))
+//   xt  = minv' rhs            (a reduction over minv's rows, in float64)
 //   x   = alpha xt + (1 - alpha) x
 //   ax  = e A0 (d xt) + mu e A1 (d xt)
 //   zp  = alpha ax + (1 - alpha) z
@@ -35,37 +35,47 @@
 //   n = 120, m = 200) and sums each over that many slots, unconditional
 //   fmafs; else it reads the strided lists from device memory. Any A0/A1
 //   is right; density sets only the speed.
-// - One block a scenario. At n <= 120 a block has 128 threads and thread
-//   j keeps column j of minv in registers (the matvec's operand, padded
-//   with zeros to the tier's width: 68 or 120), x_j, q_j and d_j too;
-//   the rows' state, rhs and d xt sit in shared memory. Past n = 120,
-//   minv sits in shared memory and a block has 256 threads.
-// - Three barriers an iteration: (1) each column's A'-sums and rhs,
-//   (2) the matvec and the x update, (3) each row's A-products, the z/y
-//   update and the next iteration's e w and mu e w, two rows a thread
-//   read before either is written, so that their loads overlap.
-// - The x-update's matvec is a compensated dot product (struct Dot2) in
-//   ascending row of minv. A plain fmaf chain of n = 120 terms left the
-//   float64 primal residual of the 150-iteration pools 1.21-1.53x the
-//   plain version's (cuBLAS) on median, and the amortized gate short of
-//   its share, on an H100 80GB HBM3 at 700 W. Dot2 is as accurate as
-//   the chain in twice float32's precision, rounded once. It takes ten
-//   operations a term where the chain took one, but only its running
-//   sum is a dependent chain, as the fmaf chain was.
-// - Otherwise the dense design's arithmetic, operation for operation. The
-//   A'-terms of a column are summed in ascending row (the dense loop's
-//   order: its zero terms added nothing), each an fmaf chain as nvcc
-//   contracted the dense loops; every elementwise
-//   update is written out in __fmaf_rn / __fmul_rn with the contraction
-//   nvcc chose for the dense source (read off its SASS), so that no
-//   compiler choice can part the two. A row's A-product is summed over its
-//   nonzeros in ascending column; with at most one nonzero in a row of A0
-//   or of A1 (the repository's basis) it is the single product the
-//   dense warp-shuffle tree gave. With more nonzeros in a row the order
-//   differs from that tree, and so may the last bits. The padding's
-//   (0, 0) terms add +0 to a sum that is never -0, which changes no bit
-//   while the operands are finite.
-// Arithmetic is plain IEEE float32: no TF32, no fast-math.
+// - One block a scenario, 256 threads. At n <= 120 (the register tiers,
+//   NMAX = 68 or 120) two threads share column j of minv: thread
+//   (j, t), t = tid % 2, keeps rows [t L, (t + 1) L) of the column in
+//   registers as doubles, L = NMAX / 2, converted once at load and
+//   padded with zeros. x_j, q_j and d_j sit in both threads; the rows'
+//   state, rhs (as doubles) and d xt in shared memory. At NMAX = 120
+//   that is 222 registers a thread and one block an SM, no spills (ptxas
+//   for sm_90a). Four threads a column, a 512-thread block, cap a thread
+//   at 128 registers, and that ran 1.4x slower at (B, iterations) =
+//   (1024, 150) on an H100. Past n = 120, minv sits in shared memory, one
+//   thread a column.
+// - Three barriers an iteration: (1) each column's A'-sums and rhs (the
+//   column's first thread), (2) the matvec and the x update, (3) each
+//   row's A-products, the z/y update and the next iteration's e w and
+//   mu e w, two rows a thread read before either is written, so that
+//   their loads overlap (one row a thread while m <= 256).
+// - The x-update's matvec sums in float64 on the FP64 units (64 DFMA a
+//   clock an SM on an H100, half the float32 rate): each product of two
+//   float32 is exact in double, each thread sums its slice in ascending
+//   row with __fma_rn, the two partial sums merge by __shfl_xor_sync
+//   (the same sum in both threads) and round once to float32. That is as
+//   accurate as the compensated float32 sum (Dot2) it replaces, at one
+//   DFMA a term and a 16-byte load of two rhs terms where Dot2 took ten
+//   float32 operations. The shared-memory tier sums in double too, minv
+//   converted per term.
+// - Otherwise the plain version's arithmetic. The A'-terms of a column
+//   are summed in ascending row (the dense loop's order: its zero terms
+//   added nothing), each an fmaf chain; every elementwise update is
+//   written out in __fmul_rn / __fadd_rn / __fsub_rn in the plain
+//   version's order of operations (ops/kernels.py
+//   fused_admm_shared_plain), so that it rounds each product and each
+//   sum as the plain version does and no compiler contraction can part
+//   the two. A row's A-product is summed over its nonzeros in ascending
+//   column; with at most one nonzero in a row of A0 or of A1 (the
+//   repository's basis) it is the single product the dense warp-shuffle
+//   tree gave. With more nonzeros in a row the order differs from that
+//   tree, and so may the last bits. The padding's (0, 0) terms add +0 to
+//   a sum that is never -0, which changes no bit while the operands are
+//   finite.
+// Arithmetic is plain IEEE float32 but for the matvec's float64 sum: no
+// TF32, no fast-math.
 
 #include <cuda_runtime.h>
 
@@ -74,8 +84,7 @@
 namespace {
 
 constexpr int kPackThreads = 256;
-constexpr int kRegThreads = 128;     // n <= 120: one column a thread
-constexpr int kSmemThreads = 256;    // n > 120: minv in shared memory
+constexpr int kThreads = 256;        // the main kernel's block
 // The padded slots a list group is read with: the friction basis's
 // widths, 2 nonzeros in a column of A0, 4 in one of A1, 1 in a row.
 constexpr int kColA0 = 2, kColA1 = 4, kRow = 1;
@@ -182,31 +191,6 @@ __device__ __forceinline__ float long_sum(const Packed& pk, int k, int n,
   return acc;
 }
 
-// A compensated dot product, Dot2 of Ogita, Rump and Oishi (2005): each
-// product's rounding error taken exactly by a fused multiply-add
-// (TwoProduct), each addition's by TwoSum, both errors summed beside the
-// running sum and added to it once at the end. The result is as accurate
-// as an ascending sum in twice the precision, then rounded. Every step is
-// an explicit round-to-nearest intrinsic, so nvcc cannot re-associate or
-// contract it. A (0, 0) term adds exactly +0 to both sums.
-struct Dot2 {
-  float p = 0.0f;   // the running sum
-  float s = 0.0f;   // the summed rounding errors
-
-  __device__ __forceinline__ void add(float a, float b) {
-    const float h = __fmul_rn(a, b);
-    const float r = __fmaf_rn(a, b, -h);            // a b - h, exact
-    const float t = __fadd_rn(p, h);
-    const float z = __fsub_rn(t, p);
-    const float q = __fadd_rn(__fsub_rn(p, __fsub_rn(t, z)),
-                              __fsub_rn(h, z));     // p + h - t, exact
-    s = __fadd_rn(s, __fadd_rn(q, r));
-    p = t;
-  }
-
-  __device__ __forceinline__ float sum() const { return __fadd_rn(p, s); }
-};
-
 // One row's z/y update from its A-products, and its next e w, mu e w.
 struct Row {
   float e, y, z, rho, irho, l, u;
@@ -222,23 +206,35 @@ struct Row {
       float p0, float p1, float mub, float alpha, float one_minus_alpha,
       int i, float* s_y, float* s_z, float* s_ew, float* s_mew) const {
     const float me = __fmul_rn(mub, e);
-    const float ax = __fmaf_rn(e, p0, __fmul_rn(me, p1));
-    const float zp = __fmaf_rn(one_minus_alpha, z, __fmul_rn(alpha, ax));
-    const float z1 = fminf(fmaxf(__fmaf_rn(y, irho, zp), l), u);
-    const float y1 = __fmaf_rn(rho, __fsub_rn(zp, z1), y);
+    const float ax = __fadd_rn(__fmul_rn(e, p0), __fmul_rn(me, p1));
+    const float zp = __fadd_rn(__fmul_rn(alpha, ax),
+                               __fmul_rn(one_minus_alpha, z));
+    const float z1 = fminf(fmaxf(__fadd_rn(zp, __fmul_rn(y, irho)), l), u);
+    const float y1 = __fadd_rn(y, __fmul_rn(rho, __fsub_rn(zp, z1)));
     s_y[i] = y1;
     s_z[i] = z1;
-    const float w = __fmaf_rn(rho, z1, -y1);
+    const float w = __fsub_rn(__fmul_rn(rho, z1), y1);
     s_ew[i] = __fmul_rn(e, w);
     s_mew[i] = __fmul_rn(me, w);
   }
 };
 
-// NMAX > 0: minv's column in registers, padded to NMAX (a multiple of 4)
-// with zeros; NMAX = 0: minv in shared memory.
+// The threads that share a column of minv at a register tier (1: the
+// shared-memory tier), and the resident blocks an SM the tier is compiled
+// for: at n <= 120 a block's 120 doubles a thread of minv leave room for
+// one.
+__host__ __device__ constexpr int parts_of(int nmax) {
+  return nmax ? 2 : 1;
+}
+__host__ __device__ constexpr int min_blocks(int nmax) {
+  return nmax == 68 ? 2 : 1;
+}
+
+// NMAX > 0: minv's column in registers as doubles, kT slices of
+// L = NMAX / kT rows (even, so that rhs is read two doubles at a time),
+// padded with zeros; NMAX = 0: minv in shared memory as floats.
 template <int NMAX>
-__global__ void __launch_bounds__(NMAX ? kRegThreads : kSmemThreads,
-                                  NMAX == 0 ? 1 : NMAX > 68 ? 3 : 4)
+__global__ void __launch_bounds__(kThreads, min_blocks(NMAX))
 fused_admm_shared_kernel(
     const float* __restrict__ minv, const float* __restrict__ mu,
     const float* __restrict__ d, const float* __restrict__ e,
@@ -249,12 +245,18 @@ fused_admm_shared_kernel(
     float* __restrict__ yo, float* __restrict__ zo, void* scratch, int n,
     int m, int rpad, int has_pad, int iters, float sigma, float alpha,
     float one_minus_alpha) {
+  constexpr int kT = parts_of(NMAX);
+  constexpr int kL = NMAX / kT;
+  static_assert(NMAX == 0 || (kL % 2 == 0 && NMAX * kT <= kThreads),
+                "slices read two doubles at a time, every column covered");
   const int nl = 2 * (n + m);
   extern __shared__ float4 smem4[];
   float4* s_pad = smem4;                        // nl kShort/2 (has_pad)
-  float* s_rhs = reinterpret_cast<float*>(smem4)
-                 + (has_pad ? nl * kShort * 2 : 0);   // rpad
-  float* s_minv = s_rhs + rpad;                 // n*n (NMAX = 0 only)
+  double* s_rhs = reinterpret_cast<double*>(
+      reinterpret_cast<float*>(smem4)
+      + (has_pad ? nl * kShort * 2 : 0));       // rpad doubles
+  float* s_minv = reinterpret_cast<float*>(s_rhs + rpad);
+                                                // n*n (NMAX = 0 only)
   float* s_xd = s_minv + (NMAX ? 0 : n * n);    // n   d * xt
   float* s_y = s_xd + n;                        // m
   float* s_z = s_y + m;                         // m
@@ -270,19 +272,25 @@ fused_admm_shared_kernel(
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int bs = blockDim.x;
-  const int j = tid;                 // this thread's column, if j < n
+  const int j = tid / kT;            // this thread's column, if j < n
+  const int part = tid % kT;         // its slice of the column
   const bool col = j < n;
+  const bool lead = col && part == 0;  // writes the column's results
   const float mub = mu[b];
   const size_t vn = static_cast<size_t>(b) * n;
   const size_t vm = static_cast<size_t>(b) * m;
   const float* g_minv = minv + static_cast<size_t>(b) * n * n;
 
-  float mcol[NMAX ? NMAX : 1];
+  double mcol[NMAX ? kL : 1];
   if constexpr (NMAX > 0) {
+    // every load issued (clamped into the matrix), so that they overlap
+    const int jc = min(j, n - 1);
 #pragma unroll
-    for (int i = 0; i < NMAX; ++i) {
-      mcol[i] = (i < n && col) ? g_minv[static_cast<size_t>(i) * n + j]
-                               : 0.0f;
+    for (int i = 0; i < kL; ++i) {
+      const int r = part * kL + i;
+      const float v =
+          n > 0 ? g_minv[static_cast<size_t>(min(r, n - 1)) * n + jc] : 0.0f;
+      mcol[i] = (r < n && col) ? static_cast<double>(v) : 0.0;
     }
   } else {
     for (int idx = tid; idx < n * n; idx += bs) s_minv[idx] = g_minv[idx];
@@ -293,7 +301,7 @@ fused_admm_shared_kernel(
     qj = q[vn + j];
     dj = d[vn + j];
   }
-  for (int i = tid; i < rpad; i += bs) s_rhs[i] = 0.0f;
+  for (int i = tid; i < rpad; i += bs) s_rhs[i] = 0.0;
   for (int i = tid; i < m; i += bs) {
     const float yi = y0[vm + i], zi = z0[vm + i], ei = e[vm + i];
     const float ri = rho[vm + i];
@@ -304,7 +312,7 @@ fused_admm_shared_kernel(
     s_u[i] = u[vm + i];
     s_rho[i] = ri;
     s_irho[i] = 1.0f / ri;
-    const float w = __fmaf_rn(ri, zi, -yi);
+    const float w = __fsub_rn(__fmul_rn(ri, zi), yi);
     s_ew[i] = __fmul_rn(ei, w);
     s_mew[i] = __fmul_rn(__fmul_rn(mub, ei), w);
   }
@@ -338,34 +346,42 @@ fused_admm_shared_kernel(
     using C1 = std::integral_constant<int, kColA1>;
     using R = std::integral_constant<int, kRow>;
     for (int it = 0; it < iters; ++it) {
-      // (1) rhs = sigma x - q + d (A0'(e w) + A1'(mu e w)), rows ascending
-      if (col) {
+      // (1) rhs = (sigma x - q) + d (A0'(e w) + A1'(mu e w)), rows
+      //     ascending, widened once to double
+      if (lead) {
         const float acc0 = sum(j, s_ew, C0{});
         const float acc1 = sum(n + j, s_mew, C1{});
-        s_rhs[j] = __fmaf_rn(dj, __fadd_rn(acc0, acc1),
-                             __fmaf_rn(sigma, xj, -qj));
+        s_rhs[j] = static_cast<double>(
+            __fadd_rn(__fsub_rn(__fmul_rn(sigma, xj), qj),
+                      __fmul_rn(dj, __fadd_rn(acc0, acc1))));
       }
       __syncthreads();
-      // (2) xt = minv' rhs, rows ascending, compensated (Dot2); the x
-      //     update; d xt
-      if (col) {
-        Dot2 dot;
-        if constexpr (NMAX > 0) {
-          const float4* r4 = reinterpret_cast<const float4*>(s_rhs);
+      // (2) xt = minv' rhs in float64, each slice in ascending row, the
+      //     slices merged, rounded once; the x update; d xt
+      double acc = 0.0;
+      if constexpr (NMAX > 0) {
+        const double2* r2 =
+            reinterpret_cast<const double2*>(s_rhs + part * kL);
 #pragma unroll
-          for (int i4 = 0; i4 < NMAX / 4; ++i4) {
-            const float4 r = r4[i4];
-            dot.add(mcol[4 * i4], r.x);
-            dot.add(mcol[4 * i4 + 1], r.y);
-            dot.add(mcol[4 * i4 + 2], r.z);
-            dot.add(mcol[4 * i4 + 3], r.w);
-          }
-        } else {
-          for (int i = 0; i < n; ++i) dot.add(s_minv[i * n + j], s_rhs[i]);
+        for (int i2 = 0; i2 < kL / 2; ++i2) {
+          const double2 r = r2[i2];
+          acc = __fma_rn(mcol[2 * i2], r.x, acc);
+          acc = __fma_rn(mcol[2 * i2 + 1], r.y, acc);
         }
-        const float acc = dot.sum();
-        xj = __fmaf_rn(alpha, acc, __fmul_rn(one_minus_alpha, xj));
-        s_xd[j] = __fmul_rn(dj, acc);
+#pragma unroll
+        for (int off = 1; off < kT; off <<= 1) {
+          acc = __dadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, off));
+        }
+      } else if (col) {
+        for (int i = 0; i < n; ++i) {
+          acc = __fma_rn(static_cast<double>(s_minv[i * n + j]), s_rhs[i],
+                         acc);
+        }
+      }
+      if (col) {
+        const float xt = __double2float_rn(acc);
+        xj = __fadd_rn(__fmul_rn(alpha, xt), __fmul_rn(one_minus_alpha, xj));
+        if (part == 0) s_xd[j] = __fmul_rn(dj, xt);
       }
       __syncthreads();
       // (3) ax = e A0 (d xt) + mu e A1 (d xt), columns ascending; z, y;
@@ -396,7 +412,7 @@ fused_admm_shared_kernel(
     iterate(std::false_type{});
   }
 
-  if (col) xo[vn + j] = xj;
+  if (lead) xo[vn + j] = xj;
   for (int i = tid; i < m; i += bs) {
     yo[vm + i] = s_y[i];
     zo[vm + i] = s_z[i];
@@ -406,12 +422,23 @@ fused_admm_shared_kernel(
 // The register tier's width for n (0: minv in shared memory).
 int tier_of(int n) { return n <= 68 ? 68 : n <= 120 ? 120 : 0; }
 
-// Shared memory besides the padded lists: rhs (padded to the tier's
-// width), minv (tier 0), d xt and nine row vectors.
+// Shared memory besides the padded lists: rhs as doubles (padded to the
+// tier's width), minv (tier 0), d xt and nine row vectors, in floats.
 size_t fixed_bytes(int n, int m, int tier) {
   const size_t rpad = tier ? tier : (n + 3) / 4 * 4;
-  return (rpad + (tier ? 0 : static_cast<size_t>(n) * n) + n
+  return (2 * rpad + (tier ? 0 : static_cast<size_t>(n) * n) + n
           + 9 * static_cast<size_t>(m)) * sizeof(float);
+}
+
+// The padded lists' bytes, and the block's shared memory with them where
+// they fit.
+size_t pad_bytes(int n, int m) {
+  return 2 * static_cast<size_t>(n + m) * kShort * sizeof(float2);
+}
+size_t smem_bytes(int n, int m, int tier) {
+  const size_t fixed = fixed_bytes(n, m, tier);
+  const size_t pad = pad_bytes(n, m);
+  return fixed + (fixed + pad <= static_cast<size_t>(kMaxSmem) ? pad : 0);
 }
 
 template <int NMAX>
@@ -422,20 +449,16 @@ int launch_main(const float* minv, const float* mu, const float* d,
                 float* zo, void* scratch, int batch, int n, int m, int iters,
                 float sigma, float alpha, float one_minus_alpha,
                 cudaStream_t stream) {
-  const size_t fixed = fixed_bytes(n, m, NMAX);
-  const size_t pad = 2 * static_cast<size_t>(n + m) * kShort
-                     * sizeof(float2);
-  const bool has_pad = fixed + pad <= static_cast<size_t>(kMaxSmem);
-  const size_t smem = fixed + (has_pad ? pad : 0);
+  const size_t smem = smem_bytes(n, m, NMAX);
+  const bool has_pad = smem > fixed_bytes(n, m, NMAX);
   const cudaError_t err = cudaFuncSetAttribute(
       fused_admm_shared_kernel<NMAX>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int rpad = NMAX ? NMAX : (n + 3) / 4 * 4;
-  fused_admm_shared_kernel<NMAX>
-      <<<batch, NMAX ? kRegThreads : kSmemThreads, smem, stream>>>(
-          minv, mu, d, e, q, l, u, rho, x0, y0, z0, xo, yo, zo, scratch, n,
-          m, rpad, has_pad, iters, sigma, alpha, one_minus_alpha);
+  fused_admm_shared_kernel<NMAX><<<batch, kThreads, smem, stream>>>(
+      minv, mu, d, e, q, l, u, rho, x0, y0, z0, xo, yo, zo, scratch, n, m,
+      rpad, has_pad, iters, sigma, alpha, one_minus_alpha);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -453,7 +476,7 @@ extern "C" int fused_admm_shared_launch(
     const float* z0, float* xo, float* yo, float* zo, void* scratch,
     int batch, int n, int m, int iters, float sigma, float alpha,
     float one_minus_alpha, void* stream) {
-  if (n < 0 || m < 0 || batch < 0 || n > kSmemThreads ||
+  if (n < 0 || m < 0 || batch < 0 || n > kThreads ||
       fixed_bytes(n, m, tier_of(n)) > static_cast<size_t>(kMaxSmem)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -476,4 +499,38 @@ extern "C" int fused_admm_shared_launch(
 #undef K2_TIER
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The main kernel that n selects, at (n, m)'s shared memory: blocks
+// resident an SM by CUDA's occupancy calculator (or minus the CUDA error
+// code); *regs and *local_bytes get its registers a thread and its local
+// memory a thread (spills).
+extern "C" int fused_admm_shared_occupancy(int n, int m, int* regs,
+                                           int* local_bytes) {
+  if (n <= 0 || m < 0 || n > kThreads) {
+    return -static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int tier = tier_of(n);
+  const void* kernel =
+      tier == 68    ? reinterpret_cast<const void*>(
+                          fused_admm_shared_kernel<68>)
+      : tier == 120 ? reinterpret_cast<const void*>(
+                          fused_admm_shared_kernel<120>)
+                    : reinterpret_cast<const void*>(
+                          fused_admm_shared_kernel<0>);
+  const size_t smem = smem_bytes(n, m, tier);
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  *regs = attr.numRegs;
+  *local_bytes = static_cast<int>(attr.localSizeBytes);
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, kernel, kThreads, smem);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  return blocks;
 }

@@ -25,7 +25,13 @@
 //   as the column); w[i, j] - c[i] * r[j] off the pivot row and column,
 //   c[i] * (1/d) on column k, r on row k, -1/d at (k, k). The four TPU
 //   kernels differ only in how they chunk and alias VMEM; their
-//   arithmetic is this one.
+//   arithmetic is this one. :489 batched_inverse_spd (K6f, body
+//   _sweep_inverse_kernel, :457), the batch-leading sweep, is the same
+//   sweep with sym_col.
+// - pallas_retired.py:144 batched_inverse_inplace (K6b, body
+//   _gj_inplace_kernel, :95): Gauss-Jordan in one working array, K6g's
+//   rules but for column k, which it writes as -(c[i] * (1/d)) where K6g
+//   writes 0 - c[i] * (1/d): the two differ only in the sign of a zero.
 //
 // Bound on an H100 SXM: a Gauss-Jordan inverse needs 2n^2(n+1) operations
 // a matrix and the sweep 2n^3; at n = 120 and B = 1024 that is ~3.5 G
@@ -52,10 +58,11 @@
 //   pivot k slot k turns over from M's column k (the factor column) to the
 //   inverse's: 0 - f[i] * (1 * (1/d)) off row k; at (k, k) 1 * (1/d)
 //   (K6g) or 1 - (d - 1) * (1 * (1/d)) (K1).
-// So a pivot updates n columns, and the three rule sets (enum Rule) differ
-// only in row k (r, or K1's w - (d - 1) r), column k (t or 0 - t,
-// t = c[i] * (1/d)), (k, k), the factor column (column k, or row k with
-// sym_col) and the final negation. One kernel body serves all three.
+// So a pivot updates n columns, and the four rule sets (enum Rule) differ
+// only in row k (r, or K1's w - (d - 1) r), column k (t, 0 - t or
+// (-c[i]) * (1/d), t = c[i] * (1/d)), (k, k), the factor column (column
+// k, or row k with sym_col) and the final negation. One kernel body
+// serves all four.
 // - n <= 128: a 16 x 16 thread grid, each thread an R x R register tile,
 //   R = ceil(n / 16) (1 to 8: the matrix zero-padded to 16 R, at most 15
 //   rows and columns past n), entry (ty + 16a, tx + 16b) in w[a][b], zeros
@@ -95,9 +102,10 @@ constexpr int kLargeThreads = 512;
 constexpr int kLargeWarps = kLargeThreads / 32;
 constexpr size_t kDefaultSmem = 48 * 1024;
 
-// The rule sets: K6g's Gauss-Jordan (also K6c's), the sweep, K1's
-// Gauss-Jordan with the "diag - 1" factor on row k.
-enum class Rule { kGJ, kSweep, kK1 };
+// The rule sets: K6g's Gauss-Jordan (also K6c's), the sweep (also K6f's),
+// K1's Gauss-Jordan with the "diag - 1" factor on row k, and K6b's
+// one-array Gauss-Jordan (K6g's but for the sign of column k's zeros).
+enum class Rule { kGJ, kSweep, kK1, kInplace };
 
 // The entry rules of pivot k, shared by both storage paths; dm1 = d - 1
 // (K1 only).
@@ -112,6 +120,7 @@ __device__ __forceinline__ float pivot_row(float w, float rd, float dm1) {
 
 template <Rule kRule>
 __device__ __forceinline__ float pivot_column(float c, float inv_d) {
+  if (kRule == Rule::kInplace) return __fmul_rn(-c, inv_d);
   const float t = __fmul_rn(c, inv_d);
   return kRule == Rule::kSweep ? t : __fsub_rn(0.0f, t);
 }
@@ -119,8 +128,8 @@ __device__ __forceinline__ float pivot_column(float c, float inv_d) {
 template <Rule kRule>
 __device__ __forceinline__ float pivot_diagonal(float inv_d, float dm1) {
   return kRule == Rule::kSweep ? -inv_d
-         : kRule == Rule::kGJ  ? inv_d
-                               : __fsub_rn(1.0f, __fmul_rn(dm1, inv_d));
+         : kRule == Rule::kK1  ? __fsub_rn(1.0f, __fmul_rn(dm1, inv_d))
+                               : inv_d;
 }
 
 // The register kernel's resident blocks an SM for its launch bounds.
@@ -354,6 +363,12 @@ extern "C" int inverse_t_gj_launch(const float* m, float* out, int batch,
 extern "C" int inverse_t_sweep_launch(const float* m, float* out, int batch,
                                       int n, int sym_col, void* stream) {
   return launch<Rule::kSweep>(m, out, batch, n, sym_col, stream);
+}
+
+// The same for K6b's one-array Gauss-Jordan.
+extern "C" int inverse_t_inplace_launch(const float* m, float* out,
+                                        int batch, int n, void* stream) {
+  return launch<Rule::kInplace>(m, out, batch, n, 0, stream);
 }
 
 // The same for K1's Gauss-Jordan ("diag - 1" on row k).

@@ -33,9 +33,7 @@ _SOURCES = {"chol_linv": "chol_linv.cu",
             "fused_admm_shared": "fused_admm_shared.cu",
             "fused_admm": "fused_admm.cu",
             "inverse_t": "inverse_t.cu",
-            "gj_inplace": "gj_inplace.cu",
             "gj_rank": "gj_rank.cu",
-            "sweep_inverse": "sweep_inverse.cu",
             "micro_admm": "micro_admm.cu",
             "mosaic_probes": "mosaic_probes.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -291,12 +289,29 @@ def fused_admm_shared_plain(a0, a1, minv, mu, d, e, qs, ls, us, rho_vec,
 
 def fused_admm_shared_smem_bytes(n: int, m: int) -> int:
     """Shared memory a block of ``csrc/fused_admm_shared.cu`` needs besides
-    its padded lists (``fixed_bytes`` there): the right-hand side padded
-    to the register tier's width (68 or 120 at n <= 120; past it minv's
-    n x n in shared memory too), d xt and nine row vectors."""
+    its padded lists (``fixed_bytes`` there): the right-hand side as
+    doubles, padded to the register tier's width (68 or 120 at n <= 120;
+    past it minv's n x n in shared memory too), d xt and nine row
+    vectors."""
     tier = next((t for t in (68, 120) if n <= t), 0)
     rpad = tier or -(-n // 4) * 4
-    return 4 * (rpad + (0 if tier else n * n) + n + 9 * m)
+    return 4 * (2 * rpad + (0 if tier else n * n) + n + 9 * m)
+
+
+def fused_admm_shared_occupancy(n: int, m: int) -> dict:
+    """The main kernel of csrc/fused_admm_shared.cu that n selects (the
+    register tiers at n <= 68 and n <= 120, the shared-memory tier past
+    it), at (n, m)'s shared memory: its resident blocks (scenarios) an SM
+    by CUDA's occupancy calculator, its registers and its local memory
+    (spill) bytes a thread."""
+    regs, local = ctypes.c_int(0), ctypes.c_int(0)
+    fn = _fn("fused_admm_shared", "occupancy", [ctypes.c_int] * 2 + [_P] * 2)
+    blocks = fn(n, m, ctypes.addressof(regs), ctypes.addressof(local))
+    if blocks < 0:
+        raise RuntimeError(f"fused_admm_shared occupancy at n={n}, m={m}: "
+                           f"CUDA error {-blocks}")
+    return dict(blocks=blocks, registers=regs.value,
+                local_bytes=local.value)
 
 
 def fused_admm_shared(a0, a1, minv, mu, d, e, qs, ls, us, rho_vec, x0, y0,

@@ -15,8 +15,9 @@ variants that the component profile (``runtime/components.py``) times.
   operator in the batch-last layout. The four TPU kernels differ only in
   how they chunk and alias VMEM, so they share one plain version and one
   CUDA kernel body with K6g (``csrc/inverse_t.cu``).
-- K6b ``batched_inverse_inplace``: Gauss-Jordan in one working array
-  (``csrc/gj_inplace.cu``).
+- K6b ``batched_inverse_inplace``: Gauss-Jordan in one working array:
+  K6g's arithmetic but for the sign of column k's zeros, so K6g's kernel
+  (``csrc/inverse_t.cu``) under a rule set of its own.
 - K6c ``batched_inverse_combined``: Gauss-Jordan on [M | I], the pivot row
   written by a select: the arithmetic of K6g in the batch-leading layout,
   so K6g's kernel (``csrc/inverse_t.cu``) on the (B, n, n) input.
@@ -27,10 +28,14 @@ variants that the component profile (``runtime/components.py``) times.
   tier). They keep the TPU versions'
   identity padding of n to a multiple of r: those pivots decide the
   panels.
-- K6f ``batched_inverse_spd``: the symmetric sweep, batch-leading
-  (``csrc/sweep_inverse.cu``); the arithmetic of K6h with ``sym_col``.
-  The TPU version's identity pivots up to 128 lanes leave the n x n block
-  as it is, so neither version runs them.
+- K6f ``batched_inverse_spd``: the symmetric sweep, batch-leading; the
+  arithmetic of K6h with ``sym_col``, so the sweep kernel of
+  ``csrc/inverse_t.cu`` with ``sym_col``. The TPU version's identity
+  pivots up to 128 lanes leave the n x n block as it is, so neither
+  version runs them.
+
+K6b, K6c and K6f run ``csrc/inverse_t.cu``'s register tile for n <= 128
+and its device-memory kernel past it, up to their entry points' limit.
 
 The TPU-only knobs of the JAX entry points (``sblock``, ``chunk``,
 ``alias``, ``block``, ``interpret``) are not carried across, nor is their
@@ -196,7 +201,7 @@ def batched_inverse_sweep_T_masked2(m: torch.Tensor) -> torch.Tensor:
 
 # --- K6b-K6f: batch-leading Gauss-Jordan and sweep variants ---------------
 
-INPLACE_N_MAX = 240         # K6b / K6f: one array, n^2 + 2n floats
+INPLACE_N_MAX = 240         # K6b / K6f: the JAX entry points' one array
 RANKS = (2, 4, 8)
 
 
@@ -221,11 +226,12 @@ def batched_inverse_inplace_plain(m: torch.Tensor) -> torch.Tensor:
 
 
 def batched_inverse_inplace(m: torch.Tensor) -> torch.Tensor:
-    """K6b: invert a batch of SPD matrices (B, n, n) with the one-array
-    Gauss-Jordan kernel (csrc/gj_inplace.cu), n <= 240; plain version on
-    the CPU."""
-    return kernels._inverse(m, "batched_inverse_inplace", "gj_inplace",
-                            batched_inverse_inplace_plain, INPLACE_N_MAX)
+    """K6b: invert a batch of SPD matrices (B, n, n) with K6g's
+    Gauss-Jordan kernel under K6b's rule set (csrc/inverse_t.cu),
+    n <= 240; plain version on the CPU."""
+    return kernels._inverse(m, "batched_inverse_inplace", "inverse_t",
+                            batched_inverse_inplace_plain, INPLACE_N_MAX,
+                            symbol="inplace_launch")
 
 
 def batched_inverse_combined_plain(m: torch.Tensor) -> torch.Tensor:
@@ -394,8 +400,9 @@ def batched_inverse_spd_plain(m: torch.Tensor) -> torch.Tensor:
 
 
 def batched_inverse_spd(m: torch.Tensor) -> torch.Tensor:
-    """K6f: invert a batch of SPD matrices (B, n, n) with the
-    batch-leading sweep kernel (csrc/sweep_inverse.cu), n <= 240; plain
-    version on the CPU."""
-    return kernels._inverse(m, "batched_inverse_spd", "sweep_inverse",
-                            batched_inverse_spd_plain, INPLACE_N_MAX)
+    """K6f: invert a batch of SPD matrices (B, n, n) with the sweep kernel
+    of csrc/inverse_t.cu, the pivot column read off the pivot row
+    (``sym_col``), n <= 240; plain version on the CPU."""
+    return kernels._inverse(m, "batched_inverse_spd", "inverse_t",
+                            batched_inverse_spd_plain, INPLACE_N_MAX,
+                            symbol="sweep_launch", extra=(1,))

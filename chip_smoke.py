@@ -7,13 +7,15 @@ NVIDIA card and check it.
 Phases, in order:
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: the nine CUDA sources from
+2. build: the seven CUDA sources from
    ``a1_qp_mpc_controller_tpu_torch/csrc`` with nvcc for ``sm_90a`` (one
    nvcc process each, all at once; ptxas registers and spills logged by
    kernel), and the occupancy of the register kernel of
-   ``csrc/inverse_t.cu`` that K1 and K3 launch at n = 32, 64, 66 and 120
-   and of ``csrc/gj_rank.cu``'s register tile (K6d, K6e) at n = 32 and
-   120 (resident blocks by CUDA's calculator, registers, spill bytes);
+   ``csrc/inverse_t.cu`` that K1 and K3 launch at n = 32, 64, 66 and 120,
+   of ``csrc/gj_rank.cu``'s register tile (K6d, K6e) at n = 32 and 120
+   and of K2's register tiers at (n, m) = (120, 200) and (66, 110)
+   (resident blocks by CUDA's calculator, registers, spill bytes; K2's
+   must not spill);
 3. the kernels against their plain PyTorch versions on the operands of a
    real B = 1024 trot tick, at every shape a driven route gives them:
    - K1 (Gauss-Jordan KKT inverse, the "diag - 1" rule set of
@@ -45,19 +47,21 @@ Phases, in order:
      'chol' route's inverse);
    - K6g (batch-last Gauss-Jordan) and the batch-last sweep kernel (K6j,
      shared by K6h, K6i and K6k; both pivot-column reads) at (1024, 120),
-     bit for bit; then the three beside K6f (the batch-leading sweep in
-     shared memory) and ``torch.linalg.inv``, timed in turns;
+     bit for bit; then the register tile under each rule set but K1's
+     (K6g, the sweep, K6b, K6f) beside ``torch.linalg.inv``, timed in
+     turns;
    - K6a (Schur recursion, K3 at the base) against itself with K3's plain
      version at the base: the same NaN pattern, the finite entries within
      1e-5 of their scale; its finite share and ||MX - I||_max reported;
    - K6b-K6f (one-array, [M | I], rank-r panel and corrected rank-r panel
      Gauss-Jordan, batch-leading sweep) at (1024, 120) and (64, 30), K6d
      at ranks 2 and 4 and K6e at 8 and 4 at both (padded to 32 pivots at
-     ranks 4 and 8), bit for bit, ||MX - I||_max reported; K6d's and
-     K6e's register tile beside ``torch.linalg.inv`` at (1024, 120),
+     ranks 4 and 8), bit for bit, ||MX - I||_max reported; K6b and K6f
+     (``csrc/inverse_t.cu``) also at (64, 136), past the register tile,
+     all three compared as int32 views so that signed zeros count; K6d's
+     and K6e's register tile beside ``torch.linalg.inv`` at (1024, 120),
      timed in turns, and the wide tier past the tile, at (64, 136), bit
-     for bit; K6f against the batch-last sweep kernel with ``sym_col``,
-     bit for bit;
+     for bit;
 4. the routes at B = 1024 on ``gazebo_mpc`` with the bench schedule: the
    bench warm-up (120 stand and 380 trot ticks on 'gj'), then, each from
    a copy of that one warmed state, 'amortized' and the bench's 'full'
@@ -86,9 +90,9 @@ Phases, in order:
    K1) and ``control_tick`` in both modes from one state, on 'full', the
    reduced tier and the legacy 'pallas' route (K1 and K4) tick by tick
    from the card's state; and 'full' free for 3 ticks against the CPU
-   with K2's plain version summing the x-update as the kernel does
-   (Dot2), the plain CPU's and the card's distances from K2's iterations
-   in float64 reported beside;
+   with K2's plain version summing the x-update as the kernel does (in
+   float64, rounded once), the plain CPU's and the card's distances from
+   K2's iterations in float64 reported beside;
 5. the scripts' paths and kernels: the port's scripts as a user runs
    them, the launch counts set to 0 before each and read after:
    ``micro_admm`` (S1, four variants x unroll 1 and 4 at B = 1024, each
@@ -238,11 +242,9 @@ UNHELD_ALIVE = ("schur",)
 # past the limits (PERF.md, PR 2); the carried state each tick writes is
 # compared too, so a fault in it still shows. 'full' also runs free
 # (``small_full_free``), against the CPU with K2's plain version summing
-# the x-update as the kernel does (Dot2), and must be nearer K2's
-# iterations in float64 than the plain float32 CPU, which sums it as one
-# chain (after 3 free ticks on an H100 80GB HBM3 at 700 W: torques
-# 2.72e-3 against 1.38e-2 N m from float64, 3.89e-3 from the Dot2 CPU,
-# 1.11e-2 from the plain CPU; PERF.md §6, PR 11).
+# the x-update as the kernel does (in float64, rounded once), and must be
+# nearer K2's iterations in float64 than the plain float32 CPU, which
+# sums it as one chain (PERF.md §6 has the distances on an H100).
 # The legacy route runs tick by tick too: free-running, its torques
 # parted by 4.97e-3 N m of the 5e-3 limit after 3 ticks on an H100 (K4
 # sums A in another order than the plain version's einsum, and the trot
@@ -487,10 +489,11 @@ def sweep_flops(n: int) -> int:
 
 
 def inverse_rows(port, name, m_all, batches, fn, plain, flops=gj_flops,
-                 resid_tol=K1_RESID_TOL):
+                 resid_tol=K1_RESID_TOL, bits=False):
     """An inverse kernel (through ``fn``, (B, n, n) in and out) against
     its plain version on the first b matrices of ``m_all`` for each b:
-    bit-equal, ||MX - I||_max within ``resid_tol`` (reported only where
+    bit-equal (with ``bits``, compared as int32 views, so that signed
+    zeros count), ||MX - I||_max within ``resid_tol`` (reported only where
     None); times of the kernel, the plain version, ``torch.linalg.inv``
     and the bound: each matrix read and written once, ``flops(n)``
     operations per matrix."""
@@ -502,7 +505,8 @@ def inverse_rows(port, name, m_all, batches, fn, plain, flops=gj_flops,
         torch.cuda.synchronize()
         ref = plain(m)
         err = float((x - ref).abs().max())
-        equal = bool(torch.equal(x, ref))
+        equal = bool(torch.equal(x.view(torch.int32), ref.view(torch.int32))
+                     if bits else torch.equal(x, ref))
         n = m.shape[-1]
         eye = torch.eye(n, dtype=torch.float64, device=m.device)
         resid = float((m.double() @ x.double() - eye).abs().max())
@@ -510,7 +514,8 @@ def inverse_rows(port, name, m_all, batches, fn, plain, flops=gj_flops,
         plain_ms = cuda_ms(lambda: plain(m), 3)
         lib_ms = cuda_ms(lambda: torch.linalg.inv(m), 10)
         bnd, by = bound_ms(b * flops(n), 2 * b * n * n * 4)
-        log(f"  {name} B={b} n={n}: bit-equal {equal} (max|kernel-plain| "
+        log(f"  {name} B={b} n={n}: bit-equal {equal}"
+            f"{' (int32 views)' if bits else ''} (max|kernel-plain| "
             f"{err:.3e}), ||MX-I||_max={resid:.3e} (tol {resid_tol}); "
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.linalg.inv "
             f"{lib_ms:.4f} ms, bound {bnd:.4f} ms ({by})")
@@ -706,7 +711,9 @@ def k2_flops(ops, iters):
     """Per iteration: the four A-products counted by the nonzeros of the
     shared A0/A1 (the data), the dense minv matvec, and the elementwise
     updates (~17 operations per row, 9 per variable); and the count
-    with dense A-products."""
+    with dense A-products. The function is float32's, so every operation
+    is counted at float32's peak, the matvec too, though the kernel sums
+    it in float64."""
     b, n = ops["qs"].shape
     m = ops["ls"].shape[1]
     nnz = int((ops["a0"] != 0).sum() + (ops["a1"] != 0).sum())
@@ -820,23 +827,22 @@ def phase_kernels(port, device):
     out["k6_designs"] = inverse_designs(port, m)
     log("[3h] K6a spd_block_inverse (K3 base)")
     out["k6a"] = block_inverse_row(port, m)
-    log("[3i] K6b-K6f vs plain, K6f vs the batch-last sweep")
+    log("[3i] K6b-K6f vs plain")
     out.update(retired_rows(port, m))
     return out
 
 
 def inverse_designs(port, m, rounds: int = 2):
-    """K6g and the sweep (one block a matrix in registers) beside K6f (the
-    sweep in shared memory) and ``torch.linalg.inv`` on the same batch,
-    timed in turns within this call, ``rounds`` times; the mean ms of each
-    over the rounds, and whether each batch-last kernel ran faster than
-    both K6f and the library."""
+    """The kernels of ``csrc/inverse_t.cu``'s register tile under each
+    rule set but K1's (K6g, the sweep, K6b, K6f: the sweep with
+    ``sym_col``) beside ``torch.linalg.inv`` on the same batch, timed in
+    turns within this call, ``rounds`` times; the mean ms of each over the
+    rounds, and whether each ran faster than the library."""
     import torch
     r = port.kernels_retired
     fns = {"K6g": r.batched_inverse_T,
            "sweep (K6j)": r.batched_inverse_sweep_T_masked,
-           "sweep sym_col": lambda x: r.batched_inverse_sweep_T(
-               x, sym_col=True),
+           "K6b": r.batched_inverse_inplace,
            "K6f": r.batched_inverse_spd,
            "torch.linalg.inv": torch.linalg.inv}
     times = {name: [] for name in fns}
@@ -844,12 +850,21 @@ def inverse_designs(port, m, rounds: int = 2):
         for name, fn in fns.items():
             times[name].append(cuda_ms(lambda: fn(m), 20))
     ms = {name: statistics.fmean(t) for name, t in times.items()}
-    faster = {name: ms[name] < ms["K6f"] and ms[name] < ms["torch.linalg.inv"]
-              for name in ("K6g", "sweep (K6j)", "sweep sym_col")}
+    faster = {name: ms[name] < ms["torch.linalg.inv"]
+              for name in fns if name != "torch.linalg.inv"}
     log(f"  at {tuple(m.shape)}, in turns: " + ", ".join(
         f"{name} {v:.4f} ms" for name, v in ms.items())
-        + f"; below K6f and torch.linalg.inv: {faster}")
-    return dict(ms=ms, below_k6f_and_library=faster)
+        + f"; below torch.linalg.inv: {faster}")
+    return dict(ms=ms, below_library=faster)
+
+
+def identity_bordered(m, n: int = 136, b: int = 64):
+    """The first b matrices of ``m`` bordered by identity to n: a shape
+    past the register tiles (n > 128), with the KKT block's values."""
+    import torch
+    big = torch.eye(n, device=m.device).repeat(b, 1, 1)
+    big[:, :m.shape[1], :m.shape[2]] = m[:b]
+    return big
 
 
 def retired_rows(port, m):
@@ -857,14 +872,14 @@ def retired_rows(port, m):
     on the KKT batch and at (64, 30), a leading block of it; K6d at ranks
     2 (the JAX default) and 4, K6e at 8 (its default) and 4, the ranks
     the component profile gives them, each at both shapes (n = 30 padded
-    to 32 pivots at ranks 4 and 8); ||MX - I||_max reported. Then K6d's
-    and K6e's register tile beside ``torch.linalg.inv`` and the wide tier
-    past the tile (``rank_designs``), and K6f
-    against the batch-last sweep kernel with ``sym_col``, which shares
-    its arithmetic."""
-    import torch
+    to 32 pivots at ranks 4 and 8); K6b and K6f also at (64, 136), past
+    the register tile (``csrc/inverse_t.cu``'s device-memory kernel),
+    compared as int32 views; ||MX - I||_max reported. Then K6d's and
+    K6e's register tile beside ``torch.linalg.inv`` and the wide tier
+    past the tile (``rank_designs``)."""
     r = port.kernels_retired
     small = m[:64, :30, :30].contiguous()
+    big = identity_bordered(m)
     rank = lambda fn, k: (lambda x: fn(x, rank=k))
     cases = {
         K6B: [("K6b", r.batched_inverse_inplace,
@@ -881,21 +896,16 @@ def retired_rows(port, m):
     out = {}
     for name, variants in cases.items():
         flops = sweep_flops if name == K6F else gj_flops
+        one_array = name in (K6B, K6F)
+        shapes = ((m, BATCH), (small, 64)) + (((big, 64),) if one_array
+                                              else ())
         out[name] = []
         for label, fn, plain in variants:
-            for x, b in ((m, BATCH), (small, 64)):
+            for x, b in shapes:
                 out[name] += inverse_rows(port, label, x, (b,), fn, plain,
-                                          flops=flops, resid_tol=None)
+                                          flops=flops, resid_tol=None,
+                                          bits=one_array)
     out["rank_designs"] = rank_designs(port, m)
-    x = r.batched_inverse_spd(m)
-    ref = r.batched_inverse_sweep_T(m, sym_col=True)
-    torch.cuda.synchronize()
-    equal = bool(torch.equal(x, ref))
-    log(f"  K6f vs the batch-last sweep kernel with sym_col at "
-        f"{tuple(m.shape)}: bit-equal {equal} (max |d| "
-        f"{float((x - ref).abs().max()):.3e})")
-    if not equal:
-        raise AssertionError("K6f differs from the sym_col sweep kernel")
     return out
 
 
@@ -919,8 +929,7 @@ def rank_designs(port, m, rounds: int = 2):
     fns["torch.linalg.inv"] = torch.linalg.inv
     # past the tile, the entry points run the wide tier: n = 136 (a
     # multiple of 2, 4 and 8), the KKT block bordered by identity
-    big = torch.eye(136, device=m.device).repeat(64, 1, 1)
-    big[:, :120, :120] = m[:64]
+    big = identity_bordered(m)
     for label, entry, plain, ranks in (
             ("K6d", r.batched_inverse_rank, r.batched_inverse_rank_plain,
              K6D_RANKS),
@@ -1315,24 +1324,14 @@ def _k2_iterations(xt_of):
     return run
 
 
-def dot2_xt(minv, rhs):
-    """minv' rhs as K2's ``struct Dot2`` sums it (csrc/fused_admm_shared.cu),
-    one float32 operation for each of its own: in ascending row of minv,
-    each product's error exact (the float32 product's distance from the
-    float64 one, a float32 itself), each addition's by TwoSum, the errors
-    summed beside the running sum and added once at the end."""
+def f64_xt(minv, rhs):
+    """minv' rhs as K2 sums it (csrc/fused_admm_shared.cu): in float64
+    (each float32 product exact), rounded once to float32. The kernel
+    sums a column's slices in a fixed order, which moves the float64 sum
+    by rounding errors of 2^-53 that the final rounding to float32 hides
+    except next to a tie."""
     import torch
-    p = torch.zeros_like(rhs)
-    s = torch.zeros_like(rhs)
-    for i in range(minv.shape[1]):
-        a, b = minv[:, i], rhs[:, i:i + 1]
-        h = a * b
-        r = (a.double() * b.double() - h.double()).float()
-        t = p + h
-        z = t - p
-        s = s + ((p - (t - z)) + (h - z) + r)
-        p = t
-    return p + s
+    return torch.einsum("bij,bi->bj", minv.double(), rhs.double()).float()
 
 
 def k2_cpu_ways(plain):
@@ -1343,7 +1342,7 @@ def k2_cpu_ways(plain):
     import torch
     return {
         "plain": plain,
-        "dot2": _k2_iterations(dot2_xt),
+        "xt64": _k2_iterations(f64_xt),
         "k64": lambda *args, **kw: tuple(o.float() for o in plain(
             *(a.double() if torch.is_tensor(a) else a for a in args),
             **{k: v.double() if torch.is_tensor(v) else v
@@ -1355,7 +1354,7 @@ def small_full_free(port, device, cfg, carry, env):
     """'full' free-running for 3 ticks from the small batch's state: on
     the card, and on the CPU with K2's plain version each way of
     ``k2_cpu_ways``. The card must stay within the small limits of the
-    CPU that sums the x-update as K2 does ('dot2'), and nearer the float64
+    CPU that sums the x-update as K2 does ('xt64'), and nearer the float64
     iterations ('k64') in torques and forces than the plain float32 CPU
     is: so the drift between the card and the plain CPU is the plain
     chain's rounding, not K2's."""
@@ -1380,26 +1379,26 @@ def small_full_free(port, device, cfg, carry, env):
         return out
 
     runs = {"card": run(device)}
-    runs.update({way: run(cpu, way) for way in ("plain", "dot2", "k64")})
+    runs.update({way: run(cpu, way) for way in ("plain", "xt64", "k64")})
     pairs = {}
-    for a, b in (("card", "dot2"), ("card", "plain"), ("card", "k64"),
-                 ("plain", "k64"), ("dot2", "k64")):
+    for a, b in (("card", "xt64"), ("card", "plain"), ("card", "k64"),
+                 ("plain", "k64"), ("xt64", "k64")):
         got = dict.fromkeys(SMALL_LIMITS, 0.0)
         for tick, (x, y) in enumerate(zip(runs[a], runs[b])):
             try:
                 now = small_diff(f"full {a} vs {b}", tick, x, y)
             except AssertionError as err:
-                if (a, b) == ("card", "dot2"):
+                if (a, b) == ("card", "xt64"):
                     raise
                 log(f"  small full free {a} vs {b}: {err}")
                 now = dict.fromkeys(SMALL_LIMITS, float("inf"))
             got = {key: max(v, now[key]) for key, v in got.items()}
         pairs[f"{a} vs {b}"] = got
-        if (a, b) != ("card", "dot2"):
+        if (a, b) != ("card", "xt64"):
             log(f"  small B={SMALL_BATCH} full free, {a} vs {b}: max |d| "
                 + ", ".join(f"{key} {v:.3e}" for key, v in got.items()))
-    small_verdict("full", pairs["card vs dot2"],
-                  " (free, the CPU's x-update in K2's Dot2 order)")
+    small_verdict("full", pairs["card vs xt64"],
+                  " (free, the CPU's x-update summed in float64 as K2's)")
     nearer = {key: (pairs["card vs k64"][key], pairs["plain vs k64"][key])
               for key in ("torque", "force")}
     log(f"  small B={SMALL_BATCH} full free, from K2's iterations in "
@@ -1982,6 +1981,14 @@ def main() -> int:
         for k in ranks for n in (32, 120)}
     log(f"  gj_rank register tile (K6d, K6e): blocks resident per SM, "
         f"registers, spill bytes: {rank_occupancy}")
+    # K2's register tiers at the route's full-size and reduced-tier shapes
+    k2_occupancy = {
+        f"n={n} m={m}": port.kernels.fused_admm_shared_occupancy(n, m)
+        for n, m in ((120, 200), (66, 110))}
+    log(f"  fused_admm_shared register tiers (K2): blocks resident per SM, "
+        f"registers, spill bytes: {k2_occupancy}")
+    if any(v["local_bytes"] for v in k2_occupancy.values()):
+        raise AssertionError(f"K2's register tiers spill: {k2_occupancy}")
 
     log("[3] kernels vs plain")
     rows = phase_kernels(port, device)
@@ -2037,7 +2044,7 @@ def main() -> int:
                      launches, True),
         kernel_entry(K6S, "inverse_t.cu", f"{RETIRED}:741", rows[K6S],
                      launches, True),
-        kernel_entry(K6B, "gj_inplace.cu", f"{RETIRED}:144", rows[K6B],
+        kernel_entry(K6B, "inverse_t.cu", f"{RETIRED}:144", rows[K6B],
                      launches, True),
         kernel_entry(K6C, "inverse_t.cu", f"{RETIRED}:213", rows[K6C],
                      launches, True),
@@ -2045,7 +2052,7 @@ def main() -> int:
                      launches, True),
         kernel_entry(K6E, "gj_rank.cu", f"{RETIRED}:397", rows[K6E],
                      launches, True),
-        kernel_entry(K6F, "sweep_inverse.cu", f"{RETIRED}:489", rows[K6F],
+        kernel_entry(K6F, "inverse_t.cu", f"{RETIRED}:489", rows[K6F],
                      launches, True),
     ]
     for entry in kernels:
@@ -2058,6 +2065,7 @@ def main() -> int:
             entry["launches_by_route"]["amortized_gate"] = \
                 golden["amortized"]["launches"][entry["name"]]
     kernels[4]["launches_by_route"][main_route[K5]] = launches[K5]
+    kernels[1]["occupancy_per_sm"] = k2_occupancy
     kernels[2]["occupancy_per_sm"] = occupancy
     # K6a has no kernel of its own: K3 at its base (4 launches a tick on
     # 'schur'), products in torch.matmul

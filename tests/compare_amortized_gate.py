@@ -41,12 +41,22 @@ against the float32 floor, in seven commands:
   trajectory.
 - ``shadow [--kernel K4]``: the gate on the kernels, every shared-basis
   solve also run with K2's plain version on the same operands, the two
-  exit tests' verdicts and residuals compared (``shadow_gate``); with
-  ``--kernel K4`` the gate's batch on the legacy route instead, each
-  solve also run with K4's plain version; on the card by default.
-- ``orders``: K2's operands from the gate's rollout on the CPU, run
-  through its plain iterations with the x-update's sum (minv' rhs) in
-  four orders, each against float64 (``xt_orders``). CPU only.
+  exit tests' verdicts and residuals compared (``shadow_gate``): K2's
+  x-update sums in float64 and rounds once, the plain version's is one
+  float32 reduction, so the float64 primal residual of K2's iterates
+  over the plain version's says which of the two float32 trajectories
+  lies nearer the exact one; with ``--kernel K4`` the gate's batch on
+  the legacy route instead, each solve also run with K4's plain
+  version; on the card by default.
+- ``orders``: K2's operands from the gate's rollout on the CPU (standing
+  and walking), run through K2's arithmetic variants (``k2_variants``:
+  ``tests/test_torch_admm_packing.py``'s ``kernel_model`` with the
+  x-update as the float64 sum, Dot2 (``dot2_xt``) or the float32 chain,
+  and the elementwise updates w,
+  rhs, x, ax, zp, z1 and y1 each contracted into one fused multiply-add
+  or rounded separately as the plain version rounds them) and through
+  the plain version: each variant's median float64 primal residual over
+  the plain version's (``xt_orders``). CPU only, ~6 minutes.
 - ``paired [--base plain]``: the gate on the kernels (or on K1 and K2
   plain), each sampled tick also run from the same state on the other
   (``paired_gate``); on the card by default.
@@ -298,87 +308,92 @@ def shadow_gate(device="cuda", kernel="K2") -> dict:
             for (shape, phase), st in sorted(stats.items())}
 
 
-def _fmaf(a, b, c):
-    """CUDA's fmaf on float32 tensors: the exact product in float64, one
-    rounding to float32."""
-    return (a.double() * b.double() + c.double()).float()
-
-
-def _xt_rows(minv, rhs, ways=1):
-    """minv' rhs summed over minv's rows in ascending order with fmaf, in
-    ``ways`` interleaved accumulators (row i to accumulator i % ways),
-    then added pairwise: K2's x-update at ways = 1."""
-    parts = []
-    for p in range(ways):
-        acc = torch.zeros_like(rhs)
-        for i in range(p, minv.shape[1], ways):
-            acc = _fmaf(minv[:, i, :], rhs[:, i:i + 1], acc)
-        parts.append(acc)
-    while len(parts) > 1:
-        parts = [parts[i] + parts[i + 1] for i in range(0, len(parts), 2)]
-    return parts[0]
-
-
-def _xt_twosum(minv, rhs):
-    """minv' rhs in row order with each product's and each addition's
-    rounding error carried in a second accumulator (compensated)."""
-    s, c = torch.zeros_like(rhs), torch.zeros_like(rhs)
+def dot2_xt(minv, rhs):
+    """minv' rhs as a compensated dot product (Dot2 of Ogita, Rump and
+    Oishi), one float32 operation for each of an earlier kernel's: in
+    ascending row of minv, each product's error exact (the float32
+    product's distance from the float64 one, a float32 itself), each
+    addition's by TwoSum, the errors summed beside the running sum and
+    added once at the end."""
+    p = torch.zeros_like(rhs)
+    s = torch.zeros_like(rhs)
     for i in range(minv.shape[1]):
-        prod = minv[:, i, :] * rhs[:, i:i + 1]
-        perr = _fmaf(minv[:, i, :], rhs[:, i:i + 1], -prod)
-        t = s + prod
-        bp = t - s
-        c = c + ((s - (t - bp)) + (prod - bp)) + perr
-        s = t
-    return s + c
+        a, b = minv[:, i], rhs[:, i:i + 1]
+        h = a * b
+        r = (a.double() * b.double() - h.double()).float()
+        t = p + h
+        z = t - p
+        s = s + ((p - (t - z)) + (h - z) + r)
+        p = t
+    return p + s
 
 
-XT_ORDERS = {
-    "einsum": lambda minv, rhs: torch.einsum("bij,bi->bj", minv, rhs),
-    "rows": _xt_rows,
-    "rows4": lambda minv, rhs: _xt_rows(minv, rhs, 4),
-    "twosum": _xt_twosum,
-}
+def k2_variants() -> dict:
+    """K2's arithmetic variants for ``orders``: name -> (the x-update's
+    model, the elementwise updates contracted), as
+    ``tests/test_torch_admm_packing.py``'s ``kernel_model`` takes them.
+    The x-update is the float64 sum rounded once (the kernel's), the
+    compensated float32 sum Dot2 (the design before it) or the ascending
+    float32 chain (the one before that). Dot2 runs with every update
+    contracted (its kernel), every update separate and each update alone
+    separate; the float64 sum and the chain with every update separate
+    and every update contracted (the chain's kernel)."""
+    from test_torch_admm_packing import UPDATES
+
+    out = {"dot2 contracted": ("dot2", UPDATES), "dot2 separate": ("dot2", ())}
+    for u in UPDATES:
+        out[f"dot2, {u} separate"] = ("dot2",
+                                      tuple(v for v in UPDATES if v != u))
+    for xt in ("f64", "chain"):
+        out[f"{xt} separate"] = (xt, ())
+        out[f"{xt} contracted"] = (xt, UPDATES)
+    return out
 
 
-def _admm(ops, xt_of, dtype=torch.float32):
-    """K2's plain iterations on ``ops`` in ``dtype``, the x-update's sum
-    by ``xt_of``. Returns (x, z)."""
-    c = {k: v.to(dtype) if torch.is_tensor(v) and v.is_floating_point()
-         else v for k, v in ops.items()}
-    a0, a1, minv, d, e = c["a0"], c["a1"], c["minv"], c["d"], c["e"]
-    me, rho = c["mu"][:, None] * e, c["rho_vec"]
-    x, y, z = c["x0"], c["y0"], c["z0"]
-    sigma, alpha = qpx.QPSettings().sigma, qpx.QPSettings().alpha
-    for _ in range(c["iters"]):
-        w = rho * z - y
-        rhs = sigma * x - c["qs"] + d * ((e * w) @ a0 + (me * w) @ a1)
-        xt = xt_of(minv, rhs)
-        xd = d * xt
-        zp = alpha * (e * (xd @ a0.T) + me * (xd @ a1.T)) + (1 - alpha) * z
-        z1 = torch.clamp(zp + y / rho, c["ls"], c["us"])
-        y = y + rho * (zp - z1)
-        x, z = alpha * xt + (1 - alpha) * x, z1
-    return x, z
+def run_variants(ops, variants) -> dict:
+    """Every variant's (x, z) on ``ops`` from one batched run of
+    ``kernel_model``: the batch repeated once a variant, each copy's
+    x-update by its own model and its switches set by (B, 1) masks."""
+    from chip_smoke import f64_xt
+    from test_torch_admm_packing import UPDATES, chain_rows, kernel_model
+
+    models = {"f64": f64_xt, "dot2": dot2_xt, "chain": chain_rows}
+    names, v, b = list(variants), len(variants), ops["qs"].shape[0]
+    rows = lambda pick: torch.tensor(
+        [pick(*variants[name]) for name in names]).repeat_interleave(b)[
+            :, None]
+    big = {k: val if k in ("a0", "a1") or not torch.is_tensor(val)
+           else val.repeat((v,) + (1,) * (val.ndim - 1))
+           for k, val in ops.items()}
+    xt = lambda minv, rhs: torch.cat([
+        models[variants[name][0]](minv[i * b:(i + 1) * b],
+                                  rhs[i * b:(i + 1) * b])
+        for i, name in enumerate(names)])
+    x, _, z = kernel_model(
+        **big, xt=xt,
+        contracted={u: rows(lambda xt, c, u=u: u in c) for u in UPDATES})
+    return {name: (x[i * b:(i + 1) * b], z[i * b:(i + 1) * b])
+            for i, name in enumerate(names)}
 
 
-def xt_orders(ticks=560, every=7, calls=12) -> dict:
+def xt_orders(ticks=560, every=1, calls=24) -> dict:
     """K2's operands from the gate's rollout on the CPU (every
-    ``every``-th tick after the walk onset, up to ``ticks``; the first
-    ``calls`` of each (B, iterations)), run through K2's plain
-    iterations with the x-update's sum in each of XT_ORDERS: the
-    median over scenarios of the primal residual ||A x - z||_inf of the
-    result in float64, and of its distance from the same iterations in
-    float64 (over the largest |x|)."""
+    ``every``-th tick up to ``ticks``; ``calls`` of each (B, iterations)
+    before and after the walk onset, spread evenly over what was kept),
+    run through each of ``k2_variants`` and through the plain version:
+    the median over scenarios of each variant's float64 primal residual
+    ||A x - z||_inf over the plain version's, of its own, and of its
+    distance from the plain iterations in float64 (over the largest |x|)."""
     gate, carry, kc = golden.gate_start(device=CPU)
     kernel, caps, tick = qpx.fused_admm_shared, {}, [0]
 
     def keep(**ops):
-        key = f"{ops['qs'].shape[0]}x{ops['iters']}"
-        if (tick[0] >= gate.walk_after and tick[0] % every == 0
-                and len(caps.setdefault(key, [])) < calls):
-            caps[key].append({k: v.clone() if torch.is_tensor(v) else v
-                              for k, v in ops.items()})
+        key = (f"{ops['qs'].shape[0]}x{ops['iters']}",
+               "walk" if tick[0] >= gate.walk_after else "stand")
+        if tick[0] % every == 0:
+            caps.setdefault(key, []).append(
+                {k: v.clone() if torch.is_tensor(v) else v
+                 for k, v in ops.items()})
         return kernel(**ops)
 
     qpx.fused_admm_shared = keep
@@ -396,20 +411,34 @@ def xt_orders(ticks=560, every=7, calls=12) -> dict:
                                   * (xd @ a1.T))
         return (ax - z.double()).abs().amax(dim=1)
 
+    variants = k2_variants()
     out = {}
     for key, group in sorted(caps.items()):
-        res, dist = {k: [] for k in XT_ORDERS}, {k: [] for k in XT_ORDERS}
+        group = [group[i] for i in np.unique(np.linspace(
+            0, len(group) - 1, min(calls, len(group))).round().astype(int))]
+        base_all, ratio, res, dist = [], *({k: [] for k in variants}
+                                          for _ in range(3))
         for ops in group:
-            x64, _ = _admm(ops, XT_ORDERS["einsum"], torch.float64)
-            for name, fn in XT_ORDERS.items():
-                x, z = _admm(ops, fn)
-                res[name] += resid(ops, x, z).tolist()
+            plain = kernels.fused_admm_shared_plain(**ops)
+            x64 = kernels.fused_admm_shared_plain(
+                **{k: v.double() if torch.is_tensor(v) else v
+                   for k, v in ops.items()})[0]
+            base = resid(ops, plain[0], plain[2])
+            base_all += base.tolist()
+            for name, (x, z) in run_variants(ops, variants).items():
+                r = resid(ops, x, z)
+                ratio[name] += (r / base).tolist()
+                res[name] += r.tolist()
                 dist[name] += ((x.double() - x64).abs().amax(dim=1)
                                / x64.abs().amax(dim=1)).tolist()
-        out[key] = dict(calls=len(group), **{
-            name: dict(resid64_median=float(np.median(res[name])),
-                       dist_to_f64_median=float(np.median(dist[name])))
-            for name in XT_ORDERS})
+        name = " ".join(key)
+        out[name] = dict(
+            calls=len(group), resid64_plain_median=float(np.median(base_all)),
+            **{v: dict(prim64_ratio_median=float(np.median(ratio[v])),
+                       resid64_median=float(np.median(res[v])),
+                       dist_to_f64_median=float(np.median(dist[v])))
+               for v in variants})
+        print(json.dumps({name: out[name]}), flush=True)
     return out
 
 

@@ -9,6 +9,11 @@ the card:
     git show HEAD~1:a1_qp_mpc_controller_tpu_torch/csrc/gj_rank.cu \\
         > build/other/gj_rank.cu
     python tests/compare_source.py K6de build/other/gj_rank.cu
+    for f in gj_inplace sweep_inverse; do git show \\
+        HEAD~1:a1_qp_mpc_controller_tpu_torch/csrc/$f.cu > build/other/$f.cu
+    done
+    python tests/compare_source.py K6bf build/other/gj_inplace.cu \\
+        build/other/sweep_inverse.cu
 
 - ``K2`` (``csrc/fused_admm_shared.cu``): on the operands of a real
   B = 1024 trot tick (``chip_smoke.real_tick``) at phase 3c's full-size
@@ -23,6 +28,13 @@ the card:
   its leading (64, 30) block: each source bit-equal to the plain version
   (so to each other), and the time, with ``torch.linalg.inv`` on the
   same batch timed in the same turns.
+- ``K6bf``: K6b and K6f on ``csrc/inverse_t.cu`` against the design
+  they left, one block a matrix in shared memory (two sources:
+  ``gj_inplace.cu``, then ``sweep_inverse.cu``), on the tick's KKT batch
+  at (1024, 120), its leading (64, 30) block and the first 64 bordered
+  by identity to n = 136 (past the register tile): each source bit-equal
+  to the plain version as int32 views (signed zeros count), and the
+  time, ``torch.linalg.inv`` in the same turns.
 
 Each source's times are ``chip_smoke.cuda_ms`` means in the order other,
 this, this, other (``torch.linalg.inv`` after each). Needs the card;
@@ -45,14 +57,21 @@ import chip_smoke as cs  # noqa: E402
 
 K2_SHAPES = ((1024, 25), (1024, 150)) + cs.GATE_K2_SHAPES
 ORDER = ("other", "this", "this", "other")
-# kernel -> (library, [(symbol, argtypes)]): the entries that swap
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_INV = [_P, _P, _I, _I, _P]           # (m, out, batch, n, stream)
+_INV1 = [_P, _P, _I, _I, _I, _P]      # the same with one int option
+# kernel -> the entries that swap: (library, symbol, argtypes, the other
+# source's symbol (None: the same), the arguments it takes of this
+# entry's (None: all)); with several other sources, entry i is taken from
+# source i
 ENTRIES = {
-    "K2": ("fused_admm_shared",
-           [("launch", None)]),
-    "K6de": ("gj_rank",
-             [("launch", [_P, _P] + [_I] * 3 + [_P]),
-              ("masked_launch", [_P, _P] + [_I] * 3 + [_P])]),
+    "K2": [("fused_admm_shared", "launch", None, None, None)],
+    "K6de": [("gj_rank", "launch", _INV1, None, None),
+             ("gj_rank", "masked_launch", _INV1, None, None)],
+    "K6bf": [("inverse_t", "inplace_launch", _INV, "gj_inplace_launch",
+              None),
+             ("inverse_t", "sweep_launch", _INV1, "sweep_inverse_launch",
+              (0, 1, 2, 3, 5))],
 }
 
 
@@ -65,26 +84,31 @@ def prim64(ops, x, z):
     return (ax - z.double()).abs().amax(dim=1)
 
 
-def sources(k, kernel, other):
-    """Build ``other`` and return use(name): within it, the port's
-    entries of ``kernel`` run 'this' tree's or the 'other' source's."""
-    lib_name, entries = ENTRIES[kernel]
-    src = Path(other).resolve()
-    lib = src.with_suffix(".so")
-    build = subprocess.run([k._nvcc(), *k.NVCC_FLAGS, "-o", str(lib),
-                            str(src)], capture_output=True, text=True)
-    cs.log(build.stdout + build.stderr)
-    if build.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {src}")
-    dll = ctypes.CDLL(str(lib))
+def sources(k, kernel, others):
+    """Build ``others`` and return use(name): within it, the port's
+    entries of ``kernel`` run 'this' tree's or the other sources'."""
+    dlls = []
+    for other in others:
+        src = Path(other).resolve()
+        lib = src.with_suffix(".so")
+        build = subprocess.run([k._nvcc(), *k.NVCC_FLAGS, "-o", str(lib),
+                                str(src)], capture_output=True, text=True)
+        cs.log(build.stdout + build.stderr)
+        if build.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {src}")
+        dlls.append(ctypes.CDLL(str(lib)))
     fns = {"this": {}, "other": {}}
-    for symbol, argtypes in entries:
+    for i, (lib_name, symbol, argtypes, other_symbol, keep) in enumerate(
+            ENTRIES[kernel]):
         key = f"{lib_name}_{symbol}"
         fns["this"][key] = k._fn(lib_name, symbol, argtypes)
-        fn = getattr(dll, key)
-        fn.argtypes = fns["this"][key].argtypes
+        fn = getattr(dlls[min(i, len(dlls) - 1)], other_symbol or key)
+        types = fns["this"][key].argtypes
+        fn.argtypes = types if keep is None else [types[a] for a in keep]
         fn.restype = ctypes.c_int
-        fns["other"][key] = fn
+        fns["other"][key] = (fn if keep is None else
+                             lambda *a, fn=fn, keep=keep:
+                             fn(*(a[j] for j in keep)))
 
     def use(name):
         k._fns.update(fns[name])
@@ -192,11 +216,44 @@ def compare_k6de(port, use, dev) -> dict:
     return out
 
 
+def compare_k6bf(port, use, dev) -> dict:
+    import torch
+    r = port.kernels_retired
+    m = cs.real_tick(port, dev)["m_full"]
+    bits = lambda x: x.view(torch.int32)
+    out = {}
+    for x in (m, m[:64, :30, :30].contiguous(), cs.identity_bordered(m)):
+        for label, entry, plain in (
+                ("K6b", r.batched_inverse_inplace,
+                 r.batched_inverse_inplace_plain),
+                ("K6f", r.batched_inverse_spd, r.batched_inverse_spd_plain)):
+            ref = plain(x)
+            row = {}
+            for name in ("this", "other"):
+                use(name)
+                got = entry(x)
+                torch.cuda.synchronize()
+                row[f"{name}_equal_plain"] = bool(torch.equal(bits(got),
+                                                              bits(ref)))
+            row.update(in_turns(use, lambda: entry(x),
+                                lambda: torch.linalg.inv(x)))
+            key = f"{label} {tuple(x.shape)}"
+            out[key] = row
+            cs.log(f"{key}: {json.dumps(row)}")
+            if not (row["this_equal_plain"] and row["other_equal_plain"]):
+                raise AssertionError(f"{key} differs from its plain version")
+    return out
+
+
+COMPARE = {"K2": compare_k2, "K6de": compare_k6de, "K6bf": compare_k6bf}
+
+
 def main(argv=None) -> int:
     import torch
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("kernel", choices=sorted(ENTRIES))
-    ap.add_argument("other", help="the other source of the kernel")
+    ap.add_argument("other", nargs="+",
+                    help="the other source(s) of the kernel")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -206,8 +263,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     cs.log(cs.card_line())
     use = sources(port.kernels, args.kernel, args.other)
-    out = (compare_k2 if args.kernel == "K2" else compare_k6de)(
-        port, use, dev)
+    out = COMPARE[args.kernel](port, use, dev)
     path = Path(args.out or ROOT / "build" / f"{args.kernel}_source.json")
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_text(json.dumps(out, indent=1))

@@ -18,12 +18,16 @@ one nonzero (the repository's basis). Each sum is
 an fmaf chain on the card; here ``_fma`` (an exact float64 product and
 sum, then float32) stands for it on both sides, so the comparison is of
 the order and the packing, not of one rounding rule against another.
-The x-update's matvec is a compensated dot product (Dot2, modelled
-operation for operation by ``chip_smoke.dot2_xt``, which the card's
-free-running check also runs), held against float64 beside the plain
-ascending chain that it replaced. The
-whole 25-iteration model is held against the JAX kernel in interpret mode
-in ``tests/test_torch_kernels.py`` (its operands are built there). The
+``kernel_model`` is the kernel's iterations: the x-update's matvec in
+float64, rounded once (``chip_smoke.f64_xt``, which the card's
+free-running check also runs), and the elementwise updates with the
+plain version's roundings; its switches (another x-update model, each
+update contracted into one fused multiply-add) give the earlier designs,
+which ``tests/compare_amortized_gate.py orders`` runs on the amortized
+gate's operands. The float64 matvec is held against float64 beside the
+plain ascending float32 chain. The whole 25-iteration model
+is held against the JAX kernel in interpret mode in
+``tests/test_torch_kernels.py`` (its operands are built there). The
 CUDA kernel itself is held against its plain version on the card
 (``tests/test_torch_kernels.py``, marked ``cuda``).
 """
@@ -35,7 +39,7 @@ import torch
 from a1_qp_mpc_controller_tpu_torch.models import srb
 from a1_qp_mpc_controller_tpu_torch.ops import kernels
 
-from chip_smoke import dot2_xt
+from chip_smoke import f64_xt
 from test_torch_inverses import _spd
 from torch_parity import t
 
@@ -250,48 +254,75 @@ def test_a_products_match_dense_tree(name):
 
 def chain_rows(minv, rhs):
     """minv' rhs as one ascending fmaf chain over minv's rows: the
-    x-update of K2's earlier design."""
+    x-update of K2's first packed design."""
     xt = torch.zeros_like(rhs)
     for i in range(minv.shape[1]):
         xt = _fma(minv[:, i], rhs[:, i:i + 1], xt)
     return xt
 
 
+# K2's elementwise updates, each either contracted (one fused
+# multiply-add where the plain version rounds a product and a sum, as the
+# earlier kernels wrote them) or separate (the plain version's roundings,
+# as the kernel writes them)
+UPDATES = ("w", "rhs", "x", "ax", "zp", "z1", "y1")
+
+
+def _pick(on, fused, separate):
+    """``fused()`` where ``on``, else ``separate()``: ``on`` a bool, or a
+    (B, 1) bool tensor where rows of one batch run different variants."""
+    if isinstance(on, bool):
+        return fused() if on else separate()
+    return torch.where(on, fused(), separate())
+
+
 def kernel_model(a0, a1, minv, mu, d, e, qs, ls, us, rho_vec, x0, y0, z0,
-                 *, iters, sigma=1e-6, alpha=1.6):
+                 *, iters, sigma=1e-6, alpha=1.6, xt=f64_xt, contracted=()):
     """The kernel's iterations in torch: the packed products in their
-    order, the matvec compensated in ascending row of minv
-    (``chip_smoke.dot2_xt``); the elementwise updates as in the plain
-    version."""
+    order, the x-update by ``xt(minv, rhs)`` and the elementwise updates
+    named in ``contracted`` (of UPDATES) as fused multiply-adds, the
+    others with the plain version's roundings. The defaults are the
+    kernel's arithmetic; ``xt=chain_rows, contracted=UPDATES`` is the
+    earlier float32 design's. ``contracted`` may also be a dict of
+    name -> (B, 1) bool tensors, so that one batch runs several variants
+    (``tests/compare_amortized_gate.py orders``)."""
+    on = (contracted if isinstance(contracted, dict)
+          else {u: u in contracted for u in UPDATES})
+    on = {u: on.get(u, False) for u in UPDATES}
     packed = Packed(a0, a1)
     me = mu[:, None] * e
     inv_rho = 1.0 / rho_vec
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32)
+    sig, alp, oma = f32(sigma), f32(alpha), f32(1.0 - alpha)
     x, y, z = x0, y0, z0
     for _ in range(iters):
-        w = rho_vec * z - y
+        w = _pick(on["w"], lambda: _fma(rho_vec, z, -y),
+                  lambda: rho_vec * z - y)
         atw = list_sums(e * w, packed.col0) + list_sums(me * w, packed.col1)
-        rhs = sigma * x - qs + d * atw
-        xt = dot2_xt(minv, rhs)
-        x = alpha * xt + (1.0 - alpha) * x
-        xd = d * xt
-        ax = e * list_sums(xd, packed.row0) + me * list_sums(xd, packed.row1)
-        zp = alpha * ax + (1.0 - alpha) * z
-        z1 = torch.clamp(zp + y * inv_rho, ls, us)
-        y = y + rho_vec * (zp - z1)
+        rhs = _pick(on["rhs"], lambda: _fma(d, atw, _fma(sig, x, -qs)),
+                    lambda: (sig * x - qs) + d * atw)
+        xt_ = xt(minv, rhs)
+        x = _pick(on["x"], lambda: _fma(alp, xt_, oma * x),
+                  lambda: alp * xt_ + oma * x)
+        xd = d * xt_
+        p0 = list_sums(xd, packed.row0)
+        p1 = list_sums(xd, packed.row1)
+        ax = _pick(on["ax"], lambda: _fma(e, p0, me * p1),
+                   lambda: e * p0 + me * p1)
+        zp = _pick(on["zp"], lambda: _fma(oma, z, alp * ax),
+                   lambda: alp * ax + oma * z)
+        z1 = torch.clamp(_pick(on["z1"], lambda: _fma(y, inv_rho, zp),
+                               lambda: zp + y * inv_rho), ls, us)
+        y = _pick(on["y1"], lambda: _fma(rho_vec, zp - z1, y),
+                  lambda: y + rho_vec * (zp - z1))
         z = z1
     return x, y, z
 
 
-@pytest.mark.parametrize("bounds", ["unclipped", "clipped"])
-def test_model_matches_plain_on_random_operands(bounds):
-    """The model against ``fused_admm_shared_plain`` on dense random
-    A0/A1 at (B, n, m) = (3, 30, 50), 25 iterations: the same update in
-    another summation order, within K2's limit (1e-4 of each output's
-    scale). 'unclipped': bounds of 1 + |g| that no row reaches, so y is 0
-    in exact arithmetic after the first iteration (float64 gives 4e-18)
-    and is held to the scale of rho z, the term it would move by, not to
-    its own rounding noise. 'clipped': bounds 100 times tighter, so that
-    10-50% of the rows end clipped and y is held to its own scale."""
+def _random_operands(bounds):
+    """Dense random A0/A1 at (B, n, m) = (3, 30, 50) with an SPD inverse
+    and a warm start; 'unclipped': bounds of 1 + |g| that no row reaches,
+    'clipped': bounds 100 times tighter."""
     a0, a1 = _dense_random(50, 30, 4)
     rng = np.random.default_rng(7)
     g = lambda *s: torch.tensor(rng.standard_normal(s), dtype=torch.float32)
@@ -299,14 +330,18 @@ def test_model_matches_plain_on_random_operands(bounds):
     minv = torch.linalg.inv(q @ q.transpose(1, 2) + 30 * torch.eye(30))
     width = 1.0 if bounds == "unclipped" else 0.01
     ls, us = -width * (1.0 + g(B, 50).abs()), width * (1.0 + g(B, 50).abs())
-    ops = dict(a0=0.1 * a0, a1=0.1 * a1, minv=minv,
-               mu=0.5 + 0.1 * g(B).abs(), d=1.0 + 0.1 * g(B, 30).abs(),
-               e=1.0 + 0.1 * g(B, 50).abs(), qs=g(B, 30), ls=ls, us=us,
-               rho_vec=0.1 + g(B, 50).abs(), x0=0.1 * g(B, 30),
-               y0=0.01 * g(B, 50), z0=torch.zeros(B, 50))
-    out = kernel_model(**ops, iters=25)
-    ref = kernels.fused_admm_shared_plain(**ops, iters=25, sigma=1e-6,
-                                          alpha=1.6)
+    return dict(a0=0.1 * a0, a1=0.1 * a1, minv=minv,
+                mu=0.5 + 0.1 * g(B).abs(), d=1.0 + 0.1 * g(B, 30).abs(),
+                e=1.0 + 0.1 * g(B, 50).abs(), qs=g(B, 30), ls=ls, us=us,
+                rho_vec=0.1 + g(B, 50).abs(), x0=0.1 * g(B, 30),
+                y0=0.01 * g(B, 50), z0=torch.zeros(B, 50))
+
+
+def _scales(ops, ref, bounds):
+    """Each output's scale: its largest entry; on 'unclipped', where y
+    is 0 in exact arithmetic, y's is that of rho z, the term it would
+    move by."""
+    ls, us = ops["ls"], ops["us"]
     clipped = float(((ref[2] <= ls) | (ref[2] >= us)).float().mean())
     scale = dict(x=ref[0].abs().max(), y=ref[1].abs().max(),
                  z=ref[2].abs().max())
@@ -315,6 +350,40 @@ def test_model_matches_plain_on_random_operands(bounds):
         scale["y"] = (ops["rho_vec"] * ref[2]).abs().max()
     else:
         assert 0.1 <= clipped <= 0.5, clipped
+    return scale
+
+
+@pytest.mark.parametrize("bounds", ["unclipped", "clipped"])
+def test_model_matches_plain_on_random_operands(bounds):
+    """The model (the kernel's arithmetic, its defaults) against
+    ``fused_admm_shared_plain`` on dense random A0/A1 at (B, n, m) =
+    (3, 30, 50), 25 iterations: the same update in another summation
+    order, within K2's limit (1e-4 of each output's scale). 'unclipped':
+    bounds that no row reaches, so y is 0 in exact arithmetic after the
+    first iteration (float64 gives 4e-18) and is held to the scale of
+    rho z, the term it would move by, not to its own rounding noise.
+    'clipped': 10-50% of the rows end clipped and y is held to its own
+    scale."""
+    ops = _random_operands(bounds)
+    out = kernel_model(**ops, iters=25)
+    ref = kernels.fused_admm_shared_plain(**ops, iters=25, sigma=1e-6,
+                                          alpha=1.6)
+    scale = _scales(ops, ref, bounds)
+    for name, o, r in zip("xyz", out, ref):
+        err = float((o - r).abs().max() / scale[name])
+        assert err <= 1e-4, (name, err)
+
+
+@pytest.mark.parametrize("bounds", ["unclipped", "clipped"])
+def test_contracted_updates_are_a_rounding_choice(bounds):
+    """The model with every elementwise update contracted (the earlier
+    kernel's fused multiply-adds) against the kernel's separate
+    roundings, on the operands above: within 1e-4 of each output's
+    scale, so the switch moves roundings, not the update."""
+    ops = _random_operands(bounds)
+    out = kernel_model(**ops, iters=25, contracted=UPDATES)
+    ref = kernel_model(**ops, iters=25)
+    scale = _scales(ops, ref, bounds)
     for name, o, r in zip("xyz", out, ref):
         err = float((o - r).abs().max() / scale[name])
         assert err <= 1e-4, (name, err)
@@ -322,10 +391,11 @@ def test_model_matches_plain_on_random_operands(bounds):
 
 def test_compensated_matvec_halves_the_chain_error():
     """On inverses of the SPD batch of the inverse tests at the KKT size
-    (n = 120, B = 32) and a seeded right-hand side, the modelled Dot2
-    matvec against minv' rhs in float64 on the same float32 operands:
-    over the batch, the median of its largest error over a scenario's
-    largest |xt| is at most half the ascending chain's."""
+    (n = 120, B = 32) and a seeded right-hand side, the kernel's x-update
+    (summed in float64, rounded once: ``chip_smoke.f64_xt``) against
+    minv' rhs in float64 on the same float32 operands: over the batch,
+    the median of its largest error over a scenario's largest |xt| is at
+    most half the ascending float32 chain's."""
     b, n = 32, 120
     minv = torch.linalg.inv(t(_spd(b, n)).double()).float()
     rhs = torch.tensor(np.random.default_rng(8).standard_normal((b, n)),
@@ -334,8 +404,8 @@ def test_compensated_matvec_halves_the_chain_error():
     scale = ref.abs().amax(dim=1)
     err = {name: float(((fn(minv, rhs).double() - ref).abs().amax(dim=1)
                         / scale).median())
-           for name, fn in (("dot2", dot2_xt), ("chain", chain_rows))}
-    assert err["dot2"] <= 0.5 * err["chain"], err
+           for name, fn in (("f64", f64_xt), ("chain", chain_rows))}
+    assert err["f64"] <= 0.5 * err["chain"], err
 
 
 def test_shared_memory_check_only_loosened():

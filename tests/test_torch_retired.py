@@ -127,9 +127,14 @@ def test_retired_kernels_match_plain_on_card(card, entry, n):
 
 
 @pytest.mark.cuda
-def test_spd_kernel_matches_batch_last_sweep_on_card(card):
-    """K6f and the batch-last sweep kernel with ``sym_col`` share their
-    arithmetic: equal bit for bit."""
-    m = t(_spd(37, 120)).to(card)
-    assert torch.equal(retired.batched_inverse_spd(m),
-                       retired.batched_inverse_sweep_T(m, sym_col=True))
+@pytest.mark.parametrize("entry", ["inplace", "spd"])
+def test_one_array_kernels_past_the_tile_on_card(card, entry):
+    """K6b and K6f at (64, 136), past ``csrc/inverse_t.cu``'s register
+    tile (its device-memory kernel), against their plain versions bit for
+    bit as int32 views, so that signed zeros count."""
+    m = t(_spd(64, 136)).to(card)
+    x = _call(entry, m)
+    torch.cuda.synchronize()
+    assert torch.equal(x.view(torch.int32),
+                       PLAIN[entry](m).view(torch.int32))
+
