@@ -13,7 +13,10 @@ same arithmetic, bound through ``ops/kernels.py``'s build.
   in registers: two is what an SM holds, so ``block`` is not a
   parameter.
 - S2 ``mosaic_probe``: the probe bodies over (ni, nj, S) arrays with S
-  lanes innermost (``csrc/mosaic_probes.cu``, one kernel a body; negate
+  lanes innermost (``csrc/mosaic_probes.cu``, each body as its
+  dependencies allow: the per-entry bodies one elementwise pass, the
+  row and column chains of axis1_reduce, axis0_reduce and carry_vec a
+  few threads each, rank1 and thin_transpose on a register tile; negate
   also serves the grid negate of ``probe_mosaic4.py``, whose grid of lane
   blocks is a TPU tiling).
 
@@ -44,8 +47,12 @@ BODIES = ("negate", "fori_mask", "axis1_reduce", "axis0_reduce", "dyn_read",
 _ROW_STEPS = ("axis0_reduce", "dyn_read", "dyn_store", "carry_vec",
               "slab_axis0", "rank1", "thin_transpose")
 _COL_STEPS = ("fori_mask", "axis1_reduce", "rank1", "thin_transpose")
-# the bodies that run as one elementwise pass (no array in shared memory)
-_ELEMENTWISE = ("negate", "fori_mask")
+# the per-entry bodies, one elementwise pass whose array no shared-memory
+# limit bounds; the chains and the tile take their shared-memory tier past
+# 1,024 entries a chain or 128 rows or columns, so their array keeps its
+# limit
+_ELEMENTWISE = ("negate", "fori_mask", "dyn_read", "dyn_store",
+                "carry_const", "slab_axis0")
 
 
 # --- S1: the fused ADMM's micro-variants ---------------------------------

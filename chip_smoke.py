@@ -104,7 +104,10 @@ Phases, in order:
    negate over (120, 120, 1024), the masked sweeps K6j/K6k on the
    reference KKT batch, ||I - XM||_max <= 1e-3); then S1's and S2's rows
    from those runs, each S2 probe also held bit for bit on seeded random
-   inputs, beside its plain version's time; the two bodies with a
+   inputs, beside its plain version's time, and every S2 body at the odd
+   shapes of ``S2_ODD_SHAPES`` (ni != nj, padded tiles, odd lane counts,
+   the shared-memory tier past the chains and the tile) at n = 0, 1, the
+   most and one below half of it; the two bodies with a
    library call (negate; fori_mask over every column, ``m * 2``) timed
    in turns with that call on the same input at (8, 8, 128),
    (120, 120, 128) and (120, 120, 1024), the ladder's own time kept
@@ -1472,15 +1475,24 @@ def s1_rows(port, device, scripts):
 
 
 def s2_flops(body: str, shape, n: int) -> int:
-    """A probe's operations: its steps' multiplies, subtracts and adds
-    (negate: one a value)."""
+    """A probe's operations: the multiplies, subtracts and adds its
+    function needs, a value shared by a row, a column or a step formed
+    once (negate: one a value; dyn_store's 2 m[0] and slab_axis0's
+    0 + m[n-1] once a lane; carry_const's 1e-6 r and r + 1 once a step;
+    rank1 and thin_transpose round each product before its scaling, 3 an
+    entry a step)."""
     ni, nj, s = shape
-    per_step = {"fori_mask": ni, "dyn_read": 0, "dyn_store": nj,
-                "slab_axis0": nj, "rank1": 3 * ni * nj,
-                "thin_transpose": 3 * ni * nj}
     if body == "negate":
         return ni * nj * s
-    return s * n * per_step.get(body, 2 * ni * nj)
+    if body in ("dyn_store", "slab_axis0"):
+        return s * nj * min(n, 1)
+    if body == "carry_const":
+        return n * (s * ni * nj + 2)
+    per_step = {"fori_mask": ni, "dyn_read": 0,
+                "axis1_reduce": ni * nj + ni, "axis0_reduce": ni * nj + nj,
+                "carry_vec": ni * nj + nj, "rank1": 3 * ni * nj,
+                "thin_transpose": 3 * ni * nj}
+    return s * n * per_step[body]
 
 
 def s2_library(body: str, m, n: int):
@@ -1537,6 +1549,51 @@ def s2_in_turns(port, device, rounds: int = 2):
     return out
 
 
+# besides the ladders' shapes, each body is held at these (ni != nj, tiles
+# that pad, odd lane counts; past them the chains' 1,024 entries and the
+# tile's 128 rows or columns: the shared-memory tier), at the steps of
+# ``s2_steps``; tests/test_torch_probe_packing.py holds its models and
+# the kernel at the same shapes and steps
+S2_ODD_SHAPES = ((24, 40, 1), (40, 24, 3), (24, 24, 128), (120, 8, 3),
+                 (8, 120, 3), (5, 7, 9), (120, 120, 3), (1100, 2, 3),
+                 (2, 1100, 3), (136, 130, 2), (130, 130, 3))
+
+
+def s2_steps(ks, body: str, shape) -> list[int]:
+    """The steps a probe body is held at on ``shape``: n = 0, 1, the most
+    that every row and column it indexes allows, and one below half of
+    it (negate takes none)."""
+    ni, nj, _ = shape
+    top = 0 if body == "negate" else min(
+        ni if body in ks._ROW_STEPS else nj,
+        nj if body in ks._COL_STEPS else ni)
+    return sorted({0, min(1, top), top, top // 2 - 1} - {-1})
+
+
+def s2_odd(port, device) -> int:
+    """Every S2 body at ``S2_ODD_SHAPES`` on a seeded random input, bit
+    for bit against its plain version; returns the cases held."""
+    import torch
+    ks = port.kernels_scripts
+    g = torch.Generator().manual_seed(2)
+    held = 0
+    for shape in S2_ODD_SHAPES:
+        ni, nj, _ = shape
+        m = torch.randn(shape, generator=g).to(device)
+        for body in ks.BODIES:
+            if body == "thin_transpose" and ni != nj:
+                continue
+            for n in s2_steps(ks, body, shape):
+                x = ks.mosaic_probe(body, m, n)
+                torch.cuda.synchronize()
+                if not torch.equal(x, ks.mosaic_probe_plain(body, m, n)):
+                    raise AssertionError(f"S2 {body} {shape} n={n} differs "
+                                         "from its plain version")
+                held += 1
+    log(f"  S2 at the odd shapes: {held} cases bit-equal")
+    return held
+
+
 def s2_rows(port, device, scripts):
     """S2's rows: every probe of the three ladders at its shape, its time
     from the ladder's run in ``phase_scripts``; here on seeded random
@@ -1590,6 +1647,7 @@ def s2_rows(port, device, scripts):
                              steps=n, err=err, ms=ms, ladder_ms=ladder_ms,
                              plain_ms=plain_ms, lib_ms=lib_ms, bound_ms=bnd,
                              bound_by=by))
+    out["odd_cases"] = s2_odd(port, device)
     return out
 
 
@@ -1930,7 +1988,8 @@ def script_entries(rows, scripts) -> list:
         entry("S2a mosaic_probes (probe_mosaic)", "mosaic_probes.cu",
               f"{SCRIPTS}/probe_mosaic.py:33", s2["probe_mosaic"],
               heaviest(s2["probe_mosaic"]), launch("probe_mosaic"),
-              launches_route="probe_mosaic"),
+              launches_route="probe_mosaic",
+              odd_shape_cases_bit_equal=s2["odd_cases"]),
         entry("S2b mosaic_probes (probe_mosaic2)", "mosaic_probes.cu",
               f"{SCRIPTS}/probe_mosaic2.py:28", s2["probe_mosaic2"],
               heaviest(s2["probe_mosaic2"]), launch("probe_mosaic2"),

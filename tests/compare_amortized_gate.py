@@ -59,7 +59,8 @@ against the float32 floor, in seven commands:
   the plain version's (``xt_orders``). CPU only, ~6 minutes.
 - ``paired [--base plain]``: the gate on the kernels (or on K1 and K2
   plain), each sampled tick also run from the same state on the other
-  (``paired_gate``); on the card by default.
+  (``paired_gate``); on the card by default; ``--walk-after S --seconds
+  T`` as for ``plain``.
 
     python tests/compare_amortized_gate.py capture 406,541 \\
         --out build/gate_states.pkl
@@ -192,7 +193,8 @@ def plain_gate(names, workers, device="cuda", seconds=2.5,
     return rep
 
 
-def paired_gate(workers, device="cuda", every=3, base="kernels") -> dict:
+def paired_gate(workers, device="cuda", every=3, base="kernels",
+                seconds=2.5, walk_after_s=1.0) -> dict:
     """The gate's rollout on ``base`` ('kernels', or 'plain': K1 and K2
     by their plain versions) and, at each of its samples, the same tick
     again from the same state on the other: each tick's forces against
@@ -201,8 +203,11 @@ def paired_gate(workers, device="cuda", every=3, base="kernels") -> dict:
     tick, so their counts over TOL_N compare the kernels with their
     plain versions at the gate's shapes on its own operands, free of the
     trajectories' drift apart; swapping ``base`` tells a bias of the
-    kernels from one of the trajectory the states come from."""
-    gate, carry, kc = golden.gate_start(device=device)
+    kernels from one of the trajectory the states come from.
+    ``seconds`` and ``walk_after_s`` move the walk's onset, as in
+    ``plain_gate``."""
+    gate, carry, kc = golden.gate_start(seconds, walk_after_s=walk_after_s,
+                                        device=device)
     b = carry.cs.contacts.shape[0]
     clone = lambda tree: tree_map(torch.clone, tree)
     on = lambda name: plain_kernels(("K1", "K2") if name == "plain" else ())
@@ -603,6 +608,8 @@ def main(argv=None) -> int:
     par.add_argument("--base", default="kernels",
                      choices=("kernels", "plain"))
     par.add_argument("--device", default="cuda")
+    par.add_argument("--seconds", type=float, default=2.5)
+    par.add_argument("--walk-after", type=float, default=1.0)
     par.add_argument("--workers", type=int,
                      default=max(1, (os.cpu_count() or 1) - 1))
     args = ap.parse_args(argv)
@@ -622,7 +629,8 @@ def main(argv=None) -> int:
         print(json.dumps(shadow_gate(args.device, args.kernel)))
     elif args.cmd == "paired":
         print(json.dumps(paired_gate(args.workers, args.device,
-                                     base=args.base)))
+                                     base=args.base, seconds=args.seconds,
+                                     walk_after_s=args.walk_after)))
     else:
         torch.set_num_threads(4)
         print(json.dumps(replay(args.states, args.tol)

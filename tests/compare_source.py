@@ -14,6 +14,9 @@ the card:
     done
     python tests/compare_source.py K6bf build/other/gj_inplace.cu \\
         build/other/sweep_inverse.cu
+    git show HEAD~1:a1_qp_mpc_controller_tpu_torch/csrc/mosaic_probes.cu \\
+        > build/other/mosaic_probes.cu
+    python tests/compare_source.py S2 build/other/mosaic_probes.cu
 
 - ``K2`` (``csrc/fused_admm_shared.cu``): on the operands of a real
   B = 1024 trot tick (``chip_smoke.real_tick``) at phase 3c's full-size
@@ -35,6 +38,11 @@ the card:
   by identity to n = 136 (past the register tile): each source bit-equal
   to the plain version as int32 views (signed zeros count), and the
   time, ``torch.linalg.inv`` in the same turns.
+- ``S2`` (``csrc/mosaic_probes.cu``): every probe of the two ladders
+  (``scripts.probe_mosaic``, ``probe_mosaic2``) and ``probe_mosaic4``'s
+  grid negate at its shape and steps, on a seeded random input: each
+  source bit-equal to the plain version, and the time, the library call
+  (``chip_smoke.s2_library``, where there is one) in the same turns.
 
 Each source's times are ``chip_smoke.cuda_ms`` means in the order other,
 this, this, other (``torch.linalg.inv`` after each). Needs the card;
@@ -60,6 +68,7 @@ ORDER = ("other", "this", "this", "other")
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _INV = [_P, _P, _I, _I, _P]           # (m, out, batch, n, stream)
 _INV1 = [_P, _P, _I, _I, _I, _P]      # the same with one int option
+_PROBE = [_I, _P, _P, _I, _I, _I, _I, _P]  # (body, m, o, ni, nj, s, n, stream)
 # kernel -> the entries that swap: (library, symbol, argtypes, the other
 # source's symbol (None: the same), the arguments it takes of this
 # entry's (None: all)); with several other sources, entry i is taken from
@@ -72,6 +81,7 @@ ENTRIES = {
               None),
              ("inverse_t", "sweep_launch", _INV1, "sweep_inverse_launch",
               (0, 1, 2, 3, 5))],
+    "S2": [("mosaic_probes", "launch", _PROBE, None, None)],
 }
 
 
@@ -245,7 +255,34 @@ def compare_k6bf(port, use, dev) -> dict:
     return out
 
 
-COMPARE = {"K2": compare_k2, "K6de": compare_k6de, "K6bf": compare_k6bf}
+def compare_s2(port, use, dev) -> dict:
+    import torch
+    ks = port.kernels_scripts
+    g = torch.Generator().manual_seed(0)
+    rungs = (port.probe_mosaic.LADDER + port.probe_mosaic2.LADDER
+             + (("grid negate", "negate", port.probe_mosaic4.GRID_SHAPE,
+                 0),))
+    out = {}
+    for name, body, shape, n in rungs:
+        m = torch.randn(shape, generator=g).to(dev)
+        ref = ks.mosaic_probe_plain(body, m, n)
+        row = {}
+        for src in ("this", "other"):
+            use(src)
+            got = ks.mosaic_probe(body, m, n)
+            torch.cuda.synchronize()
+            row[f"{src}_equal_plain"] = bool(torch.equal(got, ref))
+        row.update(in_turns(use, lambda: ks.mosaic_probe(body, m, n),
+                            cs.s2_library(body, m, n)))
+        out[name] = row
+        cs.log(f"S2 {name}: {json.dumps(row)}")
+        if not (row["this_equal_plain"] and row["other_equal_plain"]):
+            raise AssertionError(f"S2 {name} differs from its plain version")
+    return out
+
+
+COMPARE = {"K2": compare_k2, "K6de": compare_k6de, "K6bf": compare_k6bf,
+           "S2": compare_s2}
 
 
 def main(argv=None) -> int:
