@@ -136,6 +136,21 @@ def _on_card(t: torch.Tensor) -> bool:
     return True
 
 
+def occupancy(lib: str, symbol: str, *args: int) -> dict:
+    """``lib``'s ``<lib>_<symbol>(args..., &regs, &local)``: the resident
+    blocks an SM of the kernel that ``args`` select, by CUDA's occupancy
+    calculator, its registers and its local memory (spill) bytes a
+    thread."""
+    regs, local = ctypes.c_int(0), ctypes.c_int(0)
+    fn = _fn(lib, symbol, [ctypes.c_int] * len(args) + [_P] * 2)
+    blocks = fn(*args, ctypes.addressof(regs), ctypes.addressof(local))
+    if blocks < 0:
+        raise RuntimeError(f"{lib}_{symbol} at {args}: CUDA error "
+                           f"{-blocks}")
+    return dict(blocks=blocks, registers=regs.value,
+                local_bytes=local.value)
+
+
 # --- K1, K3 and K5: Gauss-Jordan inverse, panel Cholesky inverse ---------
 
 def _inverse(m: torch.Tensor, name: str, lib: str, plain, n_max: int,
@@ -212,14 +227,7 @@ def inverse_reg_occupancy(n: int) -> dict:
     (K1's and K3's rule set): its resident blocks (matrices) an SM by
     CUDA's occupancy calculator, its registers and its local memory (spill)
     bytes a thread."""
-    regs, local = ctypes.c_int(0), ctypes.c_int(0)
-    fn = _fn("inverse_t", "k1_occupancy", [ctypes.c_int, _P, _P])
-    blocks = fn(n, ctypes.addressof(regs), ctypes.addressof(local))
-    if blocks < 0:
-        raise RuntimeError(f"inverse_t occupancy at n={n}: CUDA error "
-                           f"{-blocks}")
-    return dict(blocks=blocks, registers=regs.value,
-                local_bytes=local.value)
+    return occupancy("inverse_t", "k1_occupancy", n)
 
 
 def batched_chol_linv_plain(a: torch.Tensor) -> torch.Tensor:
@@ -254,12 +262,21 @@ def batched_chol_linv_plain(a: torch.Tensor) -> torch.Tensor:
 
 def batched_chol_linv(a: torch.Tensor) -> torch.Tensor:
     """L^-1 of a batch of SPD panels (B, p, p) -> (B, p, p) lower
-    triangular, A = L L', through the CUDA kernel (csrc/chol_linv.cu),
-    p <= 128; plain version on the CPU. The exact p: the TPU version's
-    identity tail to a multiple of 8 leaves the top-left block as it
-    is."""
+    triangular, A = L L', through the CUDA kernel (csrc/chol_linv.cu: one
+    warp a panel in registers for p <= 32, a block a panel in shared
+    memory past it), p <= 128; plain version on the CPU. The exact p: the
+    TPU version's identity tail to a multiple of 8 leaves the top-left
+    block as it is."""
     return _inverse(a, "batched_chol_linv", "chol_linv",
                     batched_chol_linv_plain, CHOL_P_MAX)
+
+
+def chol_linv_occupancy(p: int) -> dict:
+    """The kernel of csrc/chol_linv.cu that p selects (the register
+    tier's instantiation for p <= 32, else the shared-memory kernel): its
+    resident blocks an SM by CUDA's occupancy calculator, its registers
+    and its local memory (spill) bytes a thread."""
+    return occupancy("chol_linv", "occupancy", p)
 
 
 # --- K2: fused shared-basis ADMM -----------------------------------------
@@ -304,14 +321,7 @@ def fused_admm_shared_occupancy(n: int, m: int) -> dict:
     it), at (n, m)'s shared memory: its resident blocks (scenarios) an SM
     by CUDA's occupancy calculator, its registers and its local memory
     (spill) bytes a thread."""
-    regs, local = ctypes.c_int(0), ctypes.c_int(0)
-    fn = _fn("fused_admm_shared", "occupancy", [ctypes.c_int] * 2 + [_P] * 2)
-    blocks = fn(n, m, ctypes.addressof(regs), ctypes.addressof(local))
-    if blocks < 0:
-        raise RuntimeError(f"fused_admm_shared occupancy at n={n}, m={m}: "
-                           f"CUDA error {-blocks}")
-    return dict(blocks=blocks, registers=regs.value,
-                local_bytes=local.value)
+    return occupancy("fused_admm_shared", "occupancy", n, m)
 
 
 def fused_admm_shared(a0, a1, minv, mu, d, e, qs, ls, us, rho_vec, x0, y0,

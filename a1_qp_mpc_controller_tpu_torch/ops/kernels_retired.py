@@ -50,8 +50,6 @@ CUDA tensor it launches its kernel or raises, counted in
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from a1_qp_mpc_controller_tpu_torch.ops import kernels
@@ -379,16 +377,7 @@ def rank_reg_occupancy(n: int, rank: int, masked: bool) -> dict:
     and ``masked`` select: its resident blocks (matrices) an SM by CUDA's
     occupancy calculator, its registers and its local memory (spill)
     bytes a thread."""
-    regs, local = ctypes.c_int(0), ctypes.c_int(0)
-    fn = kernels._fn("gj_rank", "occupancy",
-                     [ctypes.c_int] * 3 + [kernels._P] * 2)
-    blocks = fn(n, rank, int(masked), ctypes.addressof(regs),
-                ctypes.addressof(local))
-    if blocks < 0:
-        raise RuntimeError(f"gj_rank occupancy at n={n}, rank={rank}: CUDA "
-                           f"error {-blocks}")
-    return dict(blocks=blocks, registers=regs.value,
-                local_bytes=local.value)
+    return kernels.occupancy("gj_rank", "occupancy", n, rank, int(masked))
 
 
 def batched_inverse_spd_plain(m: torch.Tensor) -> torch.Tensor:

@@ -46,6 +46,11 @@ tick that overflows to the full size.
 the 12-variable QPs solved lock-step in plain PyTorch (no kernel, as the
 JAX package leaves them to XLA), with a gathered rescue of the worst
 unconverged scenarios; its one read a tick is the rescue's branch.
+
+``make_batch`` / ``batched_step`` / ``batched_rollout`` are the
+domain-randomized terrain evaluation (flat, sloped and stepped ground):
+``control_tick`` (its own solve, as the JAX package's vmapped tick) and
+the plant over the batch, with each scenario's height error.
 """
 
 from __future__ import annotations
@@ -55,8 +60,8 @@ import torch
 from a1_qp_mpc_controller_tpu_torch.config import A1Config, RobotParams
 from a1_qp_mpc_controller_tpu_torch.control import grf
 from a1_qp_mpc_controller_tpu_torch.control.controller import (
-    control_tick_build, control_tick_build_qp, control_tick_finish,
-    control_tick_finish_qp,
+    control_tick, control_tick_build, control_tick_build_qp,
+    control_tick_finish, control_tick_finish_qp,
 )
 from a1_qp_mpc_controller_tpu_torch.models import srb
 from a1_qp_mpc_controller_tpu_torch.ops import kernels_retired as retired
@@ -752,3 +757,85 @@ def make_flat_batch(cfg: A1Config, generator: torch.Generator, n: int,
     return flat_batch_from_params(
         cfg, randomize_params(generator, n, base, device=device),
         device=device)
+
+
+def randomize_terrain(generator: torch.Generator, n: int,
+                      max_pitch: float = 0.2, device=CUDA
+                      ) -> terrain_mod.Terrain:
+    """Per-scenario terrain: flat, sloped or stepped ground, each kind
+    drawn with probability 1/3 (slopes of pitch uniform in +-max_pitch
+    from 0.4 m over 8 m; six 6 cm risers of 0.3 m from 0.5 m). Draws come
+    from ``generator`` (on its own device), the pitch first, and are
+    moved to ``device``."""
+    device = resolve_device(device)
+    gdev = generator.device
+    pitch = (-max_pitch + 2.0 * max_pitch * torch.rand(
+        (n,), generator=generator, device=gdev)).to(device)
+    kind = torch.randint(0, 3, (n,), generator=generator,
+                         device=gdev).to(device)   # 0 flat, 1 slope, 2 stairs
+    full = lambda v: torch.full((n,), v, device=device)
+    zero = full(0.0)
+    return terrain_mod.Terrain.flat(n, device=device).replace(
+        pitch=torch.where(kind == 1, pitch, zero),
+        slope_start=full(0.4), slope_len=full(8.0),
+        step_height=torch.where(kind == 2, full(0.06), zero),
+        step_len=full(0.3), stairs_start=full(0.5), n_steps=full(6.0))
+
+
+def make_batch(cfg: A1Config, generator: torch.Generator, n: int,
+               base: RobotParams, height: float = 0.3, device=CUDA):
+    """Randomized params and terrain, standing-start carry: the terrain
+    evaluation's batch. Returns (params, terrain, carry)."""
+    params = randomize_params(generator, n, base, device=device)
+    terrain = randomize_terrain(generator, n, device=device)
+    carry = cl.make_standing_start(cfg, params, terrain, height,
+                                   device=device)
+    return params, terrain, carry
+
+
+def batched_step(cfg: A1Config, params: RobotParams,
+                 terrain: terrain_mod.Terrain, carry: cl.LoopCarry,
+                 joy: JoyCmd, dt, substeps: int = 5, *, device=CUDA):
+    """One control and plant step of every scenario: read_sensors ->
+    ``control_tick`` -> plant_step, ``joy`` (unbatched) to all. Returns
+    the new carry and each scenario's root height error (B,)."""
+    device = check_on(device, carry.ps.root_pos)
+    if not torch.is_tensor(dt):
+        dt = const(float(dt), carry.ps.root_pos.dtype, device)
+    sensors = plant_mod.read_sensors(params, carry.ps,
+                                     carry.prev_root_lin_vel, dt)
+    cs, mem, torques = control_tick(cfg, params, carry.cs, carry.mem,
+                                    sensors, joy, dt)
+    ps = plant_mod.plant_step(params, terrain, carry.ps, torques, dt,
+                              substeps)
+    carry = cl.LoopCarry(cs=cs, mem=mem, ps=ps,
+                         prev_root_lin_vel=carry.ps.root_lin_vel)
+    return carry, torch.abs(ps.root_pos[:, 2] - cs.root_pos_d[:, 2])
+
+
+def batched_rollout(cfg: A1Config, params: RobotParams,
+                    terrain: terrain_mod.Terrain, carry: cl.LoopCarry,
+                    joy_seq: JoyCmd, n_steps: int, substeps: int = 5, *,
+                    device=CUDA):
+    """:func:`batched_step` over every command of ``joy_seq`` ((T,) on
+    each field, ``sim.closed_loop.joy_schedule``). Returns (carry, (T, B)
+    height errors, metrics): ``mean_height_err`` and ``p95_height_err``
+    over the last ``n_steps`` // 4 steps and ``alive_frac``, the share of
+    scenarios whose height is not NaN (0-d tensors; one card, so no
+    reduction across devices)."""
+    device = check_on(device, carry.ps.root_pos)
+    dt = const(cfg.control_dt, carry.ps.root_pos.dtype, device)
+    errs = []
+    for t in range(joy_seq.velx.shape[0]):
+        carry, err = batched_step(cfg, params, terrain, carry,
+                                  tree_map(lambda a: a[t], joy_seq), dt,
+                                  substeps, device=device)
+        errs.append(err)
+    errs = torch.stack(errs)
+    tail = errs[-n_steps // 4:]
+    metrics = {
+        "mean_height_err": tail.mean(),
+        "p95_height_err": torch.quantile(tail.flatten(), 0.95),
+        "alive_frac": (~torch.isnan(carry.ps.root_pos[:, 2])).float().mean(),
+    }
+    return carry, errs, metrics

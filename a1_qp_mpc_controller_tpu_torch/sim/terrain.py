@@ -1,7 +1,10 @@
 """Parametric terrain height field (counterpart of ``sim/terrain.py``):
 z(x, y) = tan(pitch) clamp(x - slope_start, 0, slope_len)
         + step_height clamp(floor((x - stairs_start)+ / step_len), 0, n_steps).
-Fields are per scenario (B,)."""
+Fields are per scenario (B,). Flat ground is pitch = 0, step_height = 0;
+``Terrain.slope`` and ``Terrain.stairs`` give every scenario the JAX
+package's slope or staircase (its defaults: the ``stairs_single`` world's
+9 cm risers)."""
 
 from __future__ import annotations
 
@@ -29,6 +32,27 @@ class Terrain:
         return cls(pitch=z(), slope_start=z(), slope_len=z(),
                    step_height=z(), step_len=z(1.0), stairs_start=z(),
                    n_steps=z())
+
+    @classmethod
+    def slope(cls, batch: int, pitch_rad: float, start: float = 0.5,
+              length: float = 10.0, dtype=torch.float32,
+              device=CUDA) -> "Terrain":
+        full = lambda v: torch.full((batch,), v, dtype=dtype,
+                                    device=resolve_device(device))
+        return cls.flat(batch, dtype, device).replace(
+            pitch=full(pitch_rad), slope_start=full(start),
+            slope_len=full(length))
+
+    @classmethod
+    def stairs(cls, batch: int, step_height: float = 0.09,
+               step_len: float = 0.25, start: float = 0.5,
+               n_steps: float = 8.0, dtype=torch.float32,
+               device=CUDA) -> "Terrain":
+        full = lambda v: torch.full((batch,), v, dtype=dtype,
+                                    device=resolve_device(device))
+        return cls.flat(batch, dtype, device).replace(
+            step_height=full(step_height), step_len=full(step_len),
+            stairs_start=full(start), n_steps=full(n_steps))
 
 
 def height(t: Terrain, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

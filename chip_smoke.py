@@ -12,10 +12,11 @@ Phases, in order:
    nvcc process each, all at once; ptxas registers and spills logged by
    kernel), and the occupancy of the register kernel of
    ``csrc/inverse_t.cu`` that K1 and K3 launch at n = 32, 64, 66 and 120,
-   of ``csrc/gj_rank.cu``'s register tile (K6d, K6e) at n = 32 and 120
-   and of K2's register tiers at (n, m) = (120, 200) and (66, 110)
-   (resident blocks by CUDA's calculator, registers, spill bytes; K2's
-   must not spill);
+   of ``csrc/gj_rank.cu``'s register tile (K6d, K6e) at n = 32 and 120,
+   of K2's register tiers at (n, m) = (120, 200) and (66, 110) and of
+   ``csrc/chol_linv.cu``'s tiers (K5) at p = 8, 16, 30 and 64 (resident
+   blocks by CUDA's calculator, registers, spill bytes; K2's and K5's
+   register tiers must not spill);
 3. the kernels against their plain PyTorch versions on the operands of a
    real B = 1024 trot tick, at every shape a driven route gives them:
    - K1 (Gauss-Jordan KKT inverse, the "diag - 1" rule set of
@@ -39,9 +40,13 @@ Phases, in order:
      kernel's nonzero lists and runs the dense order; the blocks that ran
      it counted per row;
    - exact float32 products (TF32 off, a panel product against float64);
-   - K5 (panel Cholesky inverse) at (1024, 30, 30) on the first diagonal
-     panel of the full-size KKT batch and on the last, trailing one as
-     ``spd_cholesky_inverse_hybrid`` gives it to K5, bit for bit; then the
+   - K5 (panel Cholesky inverse: one warp a panel in registers for
+     p <= 32, a block a panel in shared memory past it) at (1024, 30, 30)
+     on the first diagonal panel of the full-size KKT batch and on the
+     last, trailing one as ``spd_cholesky_inverse_hybrid`` gives it to
+     K5, and on the batch's leading p x p blocks at p = 1, 7, 8, 31, 32
+     (the register tier's edges) and 33, 64 (the shared-memory tier), bit
+     for bit, each timed beside ``cholesky`` + ``solve_triangular``; the
      hybrid itself on the whole batch, its K5 launches counted from 0,
      held to ||MX - I||_max <= 1e-3 beside ``spd_cholesky_inverse`` (the
      'chol' route's inverse);
@@ -128,6 +133,18 @@ Phases, in order:
    and a short ``fixed_25it_rescue`` gate (the shipped schedule through
    ``control_tick``, 2 s, every 10th tick from the onset at 1 s), every
    sample within 2 N; no NaN in either; each gate's wall time printed;
+   then the terrain evaluation of ``bench.py``'s ``bench_terrain_eval``
+   on the port (``parallel.batched.make_batch`` of 256 randomized
+   scenarios on flat, sloped and stepped ground, ``batched_rollout`` of
+   400 steps walking from step 100, a warm rollout and a timed one from
+   where it ended): alive 1.0 and no NaN required, the height errors
+   overall and by kind printed beside the JAX package's record; and the
+   hardware's dual-rate schedule (``runtime.realtime.run_dual_rate_sim``,
+   2 s, the EKF at 500 Hz and control at 400 Hz, walking from 1 s), held
+   to ``tests/test_runtime.py``'s asserts; the kernels' launches counted
+   from 0 just before each and read just after (neither runs a hand
+   kernel: the tick's solve is ``control_tick``'s, as in the JAX
+   package);
 7. one JSON line listing each kernel, then the device line.
 
 Every failed check raises. The script needs a CUDA card and the
@@ -340,6 +357,25 @@ GATE_K1_BATCHES = (16, 8, 2)
 GATE_K2_SHAPES = ((16, 25), (16, 150), (8, 150), (4, 150))
 AMORTIZED_GATE_MIN_FRAC = 0.97
 FIXED_GATE = dict(seconds=2.0, sample_every=10)
+# K5's panels past the hybrid's p = 30 (leading blocks of the KKT batch):
+# the register tier's edges (P = 8, 16, 32) and one past each, and the
+# shared-memory tier past it
+K5_PS = (1, 7, 8, 31, 32, 33, 64)
+K5_REG_MAX = 32
+# the terrain evaluation (bench.py bench_terrain_eval): gazebo_mpc, 25
+# fixed iterations, B = 256 randomized scenarios on flat, sloped and
+# stepped ground, 400 steps walking at 0.3 m/s from step 100; a warm
+# rollout, then a timed one from where it ended
+TERRAIN_BATCH, TERRAIN_STEPS = 256, 400
+TERRAIN_SCHEDULE = dict(mpc_qp_iters=25, mpc_solver_mode="fixed")
+# the dual-rate schedule (tests/test_runtime.py's dual-rate test): 50
+# fixed iterations, 2 s, the EKF at 500 Hz and control at 400 Hz,
+# walking at 0.3 m/s from 1 s
+DUAL_RATE = dict(seconds=2.0, walk_after_s=1.0)
+DUAL_RATE_SCHEDULE = dict(mpc_qp_iters=50, mpc_solver_mode="fixed")
+DUAL_RATE_STEPS = dict(est_steps=1000, ctrl_steps=800)
+DUAL_RATE_Z = (0.2, 0.4)       # m, the height held
+DUAL_RATE_MIN_X = 0.1          # m, walked forward
 
 
 def log(*a):
@@ -391,8 +427,9 @@ class Port:
                      "ops.kernels", "ops.kernels_retired",
                      "ops.kernels_scripts", "ops.linalg",
                      "parallel.batched", "sim.plant", "sim.closed_loop",
-                     "runtime.components", "runtime.profiling",
-                     "runtime.golden", "scripts.run_golden_dense",
+                     "sim.terrain", "runtime.components",
+                     "runtime.profiling", "runtime.golden",
+                     "runtime.realtime", "scripts.run_golden_dense",
                      "scripts.micro_admm",
                      "scripts.probe_mosaic", "scripts.probe_mosaic2",
                      "scripts.probe_mosaic3", "scripts.probe_mosaic4"):
@@ -551,13 +588,10 @@ def f32_products(port, m):
     return rel
 
 
-def chol_rows(port, m):
-    """The hybrid on the whole KKT batch, K5's launches counted from 0
-    just before it and read just after (the panels it gives K5 kept);
-    K5 against its plain version on the first and the last (trailing)
-    panel, bit for bit; the hybrid held to ||MX - I||_max beside the
-    'chol' route's ``spd_cholesky_inverse``. Returns (K5 rows, the
-    hybrid's K5 launches, the hybrid/chol record)."""
+def hybrid_panels(port, m):
+    """``spd_cholesky_inverse_hybrid`` on the whole KKT batch, K5's
+    launches counted from 0 just before it and read just after. Returns
+    (the inverse, the launches, the panels it gave K5)."""
     import torch
     k, linalg = port.kernels, port.linalg
     panels = []
@@ -578,8 +612,24 @@ def chol_rows(port, m):
     if path_launches != len(panels) or not path_launches:
         raise AssertionError(f"K5 launched {path_launches} times for "
                              f"{len(panels)} panels")
+    return hyb, path_launches, panels
+
+
+def chol_rows(port, m):
+    """The hybrid on the whole KKT batch, K5's launches counted (the
+    panels it gives K5 kept); K5 against its plain version on the first
+    and the last (trailing) panel and on the leading p x p blocks of the
+    batch at ``K5_PS`` (both tiers), bit for bit; the hybrid held to
+    ||MX - I||_max beside the 'chol' route's ``spd_cholesky_inverse``.
+    Returns (K5 rows, the hybrid's K5 launches, the hybrid/chol
+    record)."""
+    import torch
+    k, linalg = port.kernels, port.linalg
+    hyb, path_launches, panels = hybrid_panels(port, m)
+    cases = [("first", panels[0]), ("trailing", panels[-1])] + [
+        (f"leading p={p}", m[:, :p, :p].contiguous()) for p in K5_PS]
     rows = []
-    for label, a in (("first", panels[0]), ("trailing", panels[-1])):
+    for label, a in cases:
         b, p, _ = a.shape
         x = k.batched_chol_linv(a)
         torch.cuda.synchronize()
@@ -593,13 +643,14 @@ def chol_rows(port, m):
             torch.linalg.cholesky(a), eye, upper=False), 10)
         # a Cholesky and a triangular inverse, p^3 / 3 operations each
         bnd, by = bound_ms(b * 2 * p ** 3 / 3, 2 * b * p * p * 4)
-        log(f"  K5 {label} panel B={b} p={p}: bit-equal {equal} "
+        tier = "registers" if p <= K5_REG_MAX else "shared memory"
+        log(f"  K5 {label} panel B={b} p={p} ({tier}): bit-equal {equal} "
             f"(max|kernel-plain| {err:.3e}); kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, cholesky + solve_triangular {lib_ms:.4f} "
             f"ms, bound {bnd:.4f} ms ({by})")
         if not equal:
             raise AssertionError(f"K5 disagrees on the {label} panel: {err}")
-        rows.append(dict(b=b, n=p, panel=label, err=err, ms=ms,
+        rows.append(dict(b=b, n=p, panel=label, tier=tier, err=err, ms=ms,
                          plain_ms=plain_ms, lib_ms=lib_ms, bound_ms=bnd,
                          bound_by=by))
     chol = linalg.spd_cholesky_inverse(m)
@@ -1941,6 +1992,112 @@ def phase_golden(port, device):
     return out
 
 
+def phase_terrain(port, device):
+    """``bench.py``'s terrain evaluation on the port: ``make_batch`` of
+    ``TERRAIN_BATCH`` scenarios from a seeded generator, a warm
+    ``batched_rollout`` of ``TERRAIN_STEPS`` steps, then a timed one from
+    where it ended; the kernels' launches counted from 0 just before the
+    two and read just after. Every scenario must stay alive, no height
+    error may be NaN. The JAX package's record (``BENCH_r05.json``, other
+    draws) is printed beside, not held."""
+    import numpy as np
+    import torch
+    k, batched = port.kernels, port.batched
+    cfg, params = port.config.load_profile("gazebo_mpc", device=device)
+    cfg = dataclasses.replace(cfg, **TERRAIN_SCHEDULE)
+    gen = torch.Generator().manual_seed(1)
+    pb, terrain, carry = batched.make_batch(cfg, gen, TERRAIN_BATCH, params,
+                                            device=device)
+    joy = port.closed_loop.joy_schedule(
+        TERRAIN_STEPS, walk_after=TERRAIN_STEPS // 4, velx=0.3,
+        device=device)
+    k.reset_launches()
+    t0 = time.perf_counter()
+    carry, _, _ = batched.batched_rollout(cfg, pb, terrain, carry, joy,
+                                          TERRAIN_STEPS, device=device)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    carry, errs, metrics = batched.batched_rollout(
+        cfg, pb, terrain, carry, joy, TERRAIN_STEPS, device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: n for name, n in k.launches.items() if n}
+    tail = errs[-TERRAIN_STEPS // 4:].cpu().numpy()
+    per_scen = tail.mean(axis=0)
+    pitch, steph = terrain.pitch.cpu().numpy(), terrain.step_height.cpu(
+        ).numpy()
+    kinds = {"flat": (pitch == 0) & (steph == 0), "slope": pitch != 0,
+             "stairs": steph != 0}
+    rep = dict(
+        scenarios=TERRAIN_BATCH, steps=TERRAIN_STEPS,
+        mean_height_err_m=float(metrics["mean_height_err"]),
+        p95_height_err_m=float(metrics["p95_height_err"]),
+        alive_frac=float(metrics["alive_frac"]),
+        by_kind={name: dict(n=int(m.sum()),
+                            mean_height_err_m=float(per_scen[m].mean()),
+                            p95_height_err_m=float(np.percentile(
+                                tail[:, m], 95)))
+                 for name, m in kinds.items() if m.any()},
+        scenario_ticks_per_s=TERRAIN_BATCH * TERRAIN_STEPS / wall,
+        warm_s=warm_s, wall_s=wall, launches=launches,
+        nan=bool(torch.isnan(errs).any() or torch.isnan(
+            carry.ps.root_pos).any()))
+    bench = ROOT / "BENCH_r05.json"
+    ref = (json.loads(bench.read_text())["parsed"]["extra"]
+           .get("terrain_eval", {}) if bench.exists() else {})
+    log(f"  terrain eval (B = {TERRAIN_BATCH}, {TERRAIN_STEPS} steps, walk "
+        f"from {TERRAIN_STEPS // 4}): alive {rep['alive_frac']}, mean "
+        f"height error {rep['mean_height_err_m']:.4f} m, p95 "
+        f"{rep['p95_height_err_m']:.4f} m, nan {rep['nan']}; by kind "
+        + ", ".join(f"{name} n={v['n']} mean {v['mean_height_err_m']:.4f} "
+                    f"p95 {v['p95_height_err_m']:.4f}"
+                    for name, v in rep["by_kind"].items())
+        + f"; warm rollout {warm_s:.1f} s, timed {wall:.1f} s "
+        f"({rep['scenario_ticks_per_s']:.1f} scenario-ticks/s); kernel "
+        f"launches {launches or 'none'}; BENCH_r05.json terrain_eval (the "
+        f"JAX package's record, other draws, not a target): mean "
+        f"{ref.get('mean_height_err_m')} m, p95 "
+        f"{ref.get('p95_height_err_m')} m, alive {ref.get('alive_frac')}")
+    if rep["alive_frac"] != 1.0 or rep["nan"]:
+        raise AssertionError(f"terrain eval: {rep}")
+    rep["bench_r05"] = ref
+    return rep
+
+
+def phase_dual_rate(port, device):
+    """``run_dual_rate_sim`` on the card for ``DUAL_RATE['seconds']`` with
+    the JAX test's joystick, the kernels' launches counted from 0 just
+    before it and read just after; held to the JAX test's asserts."""
+    import torch
+    k = port.kernels
+    cfg, params = port.config.load_profile("gazebo_mpc", device=device)
+    cfg = dataclasses.replace(cfg, **DUAL_RATE_SCHEDULE)
+    joy = port.types.JoyCmd.zeros(device=device)
+    joy = joy.replace(ctrl_state=torch.ones_like(joy.ctrl_state),
+                      velx=torch.full_like(joy.velx, 0.3))
+    k.reset_launches()
+    t0 = time.perf_counter()
+    rep = port.realtime.run_dual_rate_sim(
+        cfg, port.tensors.broadcast_batch(params, 1),
+        port.terrain.Terrain.flat(1, device=device), joy=joy,
+        device=device, **DUAL_RATE)
+    rep["wall_s"] = time.perf_counter() - t0
+    rep["launches"] = {name: n for name, n in k.launches.items() if n}
+    log(f"  dual-rate sim ({DUAL_RATE['seconds']} s, walk from "
+        f"{DUAL_RATE['walk_after_s']} s): {rep['est_steps']} estimate and "
+        f"{rep['ctrl_steps']} control steps, final x "
+        f"{rep['final_x_m'][0]:.4f} m, z {rep['final_z_m'][0]:.4f} m, nan "
+        f"{rep['nan']}, {rep['wall_s']:.1f} s; kernel launches "
+        f"{rep['launches'] or 'none'}")
+    z, x = rep["final_z_m"][0], rep["final_x_m"][0]
+    if (rep["nan"] or any(rep[key] != v for key, v in DUAL_RATE_STEPS.items())
+            or not DUAL_RATE_Z[0] < z < DUAL_RATE_Z[1]
+            or not x > DUAL_RATE_MIN_X):
+        raise AssertionError(f"dual-rate sim: {rep}")
+    return rep
+
+
 def kernel_entry(name, source, replaces, rows, launches, lib):
     """The kernels line's entry: the headline shape's numbers (the first
     row), every other shape beside them."""
@@ -2048,6 +2205,15 @@ def main() -> int:
         f"registers, spill bytes: {k2_occupancy}")
     if any(v["local_bytes"] for v in k2_occupancy.values()):
         raise AssertionError(f"K2's register tiers spill: {k2_occupancy}")
+    # K5's register tier (P = 8, 16, 32; the hybrid's p = 30) and its
+    # shared-memory tier past it
+    k5_occupancy = {p: port.kernels.chol_linv_occupancy(p)
+                    for p in (8, 16, 30, 64)}
+    log(f"  chol_linv tiers (K5) by p: blocks resident per SM, registers, "
+        f"spill bytes: {k5_occupancy}")
+    if any(v["local_bytes"] for p, v in k5_occupancy.items()
+           if p <= K5_REG_MAX):
+        raise AssertionError(f"K5's register tier spills: {k5_occupancy}")
 
     log("[3] kernels vs plain")
     rows = phase_kernels(port, device)
@@ -2071,6 +2237,10 @@ def main() -> int:
     gate = phase_gate(port, device)
     log("[6d] MPC golden gates")
     golden = phase_golden(port, device)
+    log("[6e] terrain evaluation")
+    terrain = phase_terrain(port, device)
+    log("[6f] dual-rate schedule")
+    dual_rate = phase_dual_rate(port, device)
 
     log("[7] kernels")
     # each kernel's launches on the path it is read for: K1/K2 on the
@@ -2131,6 +2301,7 @@ def main() -> int:
     kernels[2]["serves"] = {"K6a spd_block_inverse": dict(
         replaces=f"{RETIRED}:41", **rows["k6a"])}
     kernels[4]["hybrid"] = rows["hybrid"]
+    kernels[4]["occupancy_per_sm"] = k5_occupancy
     kernels[5]["designs_in_turns"] = rows["k6_designs"]
     for entry, label in ((kernels[9], "K6d"), (kernels[10], "K6e")):
         entry["occupancy_per_sm"] = {
@@ -2154,6 +2325,7 @@ def main() -> int:
                     "f32_product_rel": rows["f32_product_rel"],
                     "stand": stand, "small_stand": small_stand,
                     "stand_gate": gate, "golden_gates": golden,
+                    "terrain_eval": terrain, "dual_rate": dual_rate,
                     "seconds": time.perf_counter() - t_start}))
     log(card)
     log(json.dumps({"kernels": kernels}))

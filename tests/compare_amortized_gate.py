@@ -61,6 +61,11 @@ against the float32 floor, in seven commands:
   plain), each sampled tick also run from the same state on the other
   (``paired_gate``); on the card by default; ``--walk-after S --seconds
   T`` as for ``plain``.
+- ``sign-test REPORT...``: ``paired``'s JSON reports (one a trajectory,
+  the last JSON line of each file) pooled: the samples over 2 N on the
+  kernels only (k) and on the plain versions only (q), summed, and the
+  two-sided exact sign test of k against q (``sign_test``: binomial,
+  n = k + q, 1/2); no card, no JAX.
 
     python tests/compare_amortized_gate.py capture 406,541 \\
         --out build/gate_states.pkl
@@ -72,6 +77,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import pickle
 import sys
@@ -242,6 +248,36 @@ def paired_gate(workers, device="cuda", every=3, base="kernels",
                 over_plain_only=int((over_p & ~over_k).sum()),
                 max_abs_dev_gap_N=float(np.abs(kern - plain).max()),
                 mean_dev_gap_N=float((kern - plain).mean()))
+
+
+def sign_test(k: int, q: int) -> float:
+    """Two-sided exact sign test: the probability under Binomial(k + q,
+    1/2) of a split at least as uneven as k / q."""
+    n, lo = k + q, min(k, q)
+    tail = sum(math.comb(n, i) for i in range(lo + 1)) / 2.0 ** n
+    return min(1.0, 2.0 * tail)
+
+
+def pooled_sign_test(paths) -> dict:
+    """``paired``'s reports pooled, with each trajectory's counts and
+    kernels' share within 2 N beside them, and the sign test of the
+    pooled discordant samples."""
+    rows = []
+    for path in paths:
+        with open(path) as f:
+            rep = json.loads([line for line in f
+                              if line.startswith("{")][-1])
+        if rep["base"] != "kernels":
+            raise ValueError(f"{path}: base {rep['base']}, not kernels")
+        rows.append(dict(report=str(path),
+                         kernels_only=rep["over_kernels_only"],
+                         plain_only=rep["over_plain_only"],
+                         kernels_frac=rep["kernels"]["frac_within_tol"],
+                         plain_frac=rep["plain"]["frac_within_tol"]))
+    k = sum(r["kernels_only"] for r in rows)
+    q = sum(r["plain_only"] for r in rows)
+    return dict(trajectories=rows, kernels_only=k, plain_only=q,
+                p_two_sided=sign_test(k, q))
 
 
 def shadow_gate(device="cuda", kernel="K2") -> dict:
@@ -612,8 +648,11 @@ def main(argv=None) -> int:
     par.add_argument("--walk-after", type=float, default=1.0)
     par.add_argument("--workers", type=int,
                      default=max(1, (os.cpu_count() or 1) - 1))
+    sub.add_parser("sign-test").add_argument("reports", nargs="+")
     args = ap.parse_args(argv)
-    if args.cmd == "capture":
+    if args.cmd == "sign-test":
+        print(json.dumps(pooled_sign_test(args.reports)))
+    elif args.cmd == "capture":
         capture({int(t) for t in args.ticks.split(",")}, args.out,
                 args.backend, device=args.device)
     elif args.cmd == "plain":

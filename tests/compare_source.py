@@ -17,6 +17,9 @@ the card:
     git show HEAD~1:a1_qp_mpc_controller_tpu_torch/csrc/mosaic_probes.cu \\
         > build/other/mosaic_probes.cu
     python tests/compare_source.py S2 build/other/mosaic_probes.cu
+    git show HEAD~1:a1_qp_mpc_controller_tpu_torch/csrc/chol_linv.cu \\
+        > build/other/chol_linv.cu
+    python tests/compare_source.py K5 build/other/chol_linv.cu
 
 - ``K2`` (``csrc/fused_admm_shared.cu``): on the operands of a real
   B = 1024 trot tick (``chip_smoke.real_tick``) at phase 3c's full-size
@@ -43,6 +46,14 @@ the card:
   grid negate at its shape and steps, on a seeded random input: each
   source bit-equal to the plain version, and the time, the library call
   (``chip_smoke.s2_library``, where there is one) in the same turns.
+- ``K5`` (``csrc/chol_linv.cu``): the panels ``spd_cholesky_inverse_hybrid``
+  gives K5 on the tick's KKT batch (the first and the trailing, (1024,
+  30)), a dense random SPD batch of that shape (no zero entries) and the
+  batch's leading p x p blocks at ``chip_smoke.K5_PS``: each
+  source bit-equal to the plain version, and the time, ``cholesky`` +
+  ``solve_triangular`` in the same turns; then the hybrid on the whole
+  batch with each source, its ||MX - I||_max beside
+  ``spd_cholesky_inverse``'s.
 
 Each source's times are ``chip_smoke.cuda_ms`` means in the order other,
 this, this, other (``torch.linalg.inv`` after each). Needs the card;
@@ -82,6 +93,7 @@ ENTRIES = {
              ("inverse_t", "sweep_launch", _INV1, "sweep_inverse_launch",
               (0, 1, 2, 3, 5))],
     "S2": [("mosaic_probes", "launch", _PROBE, None, None)],
+    "K5": [("chol_linv", "launch", _INV, None, None)],
 }
 
 
@@ -281,8 +293,53 @@ def compare_s2(port, use, dev) -> dict:
     return out
 
 
+def compare_k5(port, use, dev) -> dict:
+    import torch
+    k, linalg = port.kernels, port.linalg
+    m = cs.real_tick(port, dev)["m_full"]
+    _, _, panels = cs.hybrid_panels(port, m)
+    # a dense SPD batch of the hybrid's panel size beside the KKT's
+    # panels, which hold many exact zeros
+    g = torch.Generator(device=dev).manual_seed(0)
+    r = torch.randn(panels[0].shape, generator=g, device=dev)
+    dense = r @ r.transpose(1, 2) / r.shape[-1] + 0.1 * torch.eye(
+        r.shape[-1], device=dev)
+    cases = [("first", panels[0]), ("trailing", panels[-1]),
+             ("dense random", dense)] + [
+        (f"leading p={p}", m[:, :p, :p].contiguous()) for p in cs.K5_PS]
+    out = {}
+    for label, a in cases:
+        ref = k.batched_chol_linv_plain(a)
+        row = {}
+        for name in ("this", "other"):
+            use(name)
+            got = k.batched_chol_linv(a)
+            torch.cuda.synchronize()
+            row[f"{name}_equal_plain"] = bool(torch.equal(got, ref))
+        eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device)
+        row.update(in_turns(use, lambda: k.batched_chol_linv(a),
+                            lambda: torch.linalg.solve_triangular(
+                                torch.linalg.cholesky(a), eye,
+                                upper=False)))
+        key = f"K5 {label} {tuple(a.shape)}"
+        out[key] = row
+        cs.log(f"{key}: {json.dumps(row)}")
+        if not (row["this_equal_plain"] and row["other_equal_plain"]):
+            raise AssertionError(f"{key} differs from its plain version")
+    resid = port.components.resid_max
+    out["resid"] = {"spd_cholesky_inverse": resid(
+        m, linalg.spd_cholesky_inverse(m))}
+    for name in ("this", "other"):
+        use(name)
+        out["resid"][f"hybrid {name}"] = resid(
+            m, linalg.spd_cholesky_inverse_hybrid(m))
+    use("this")
+    cs.log(f"||MX - I||_max on {tuple(m.shape)}: {json.dumps(out['resid'])}")
+    return out
+
+
 COMPARE = {"K2": compare_k2, "K6de": compare_k6de, "K6bf": compare_k6bf,
-           "S2": compare_s2}
+           "S2": compare_s2, "K5": compare_k5}
 
 
 def main(argv=None) -> int:

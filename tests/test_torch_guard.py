@@ -7,6 +7,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -41,7 +42,8 @@ def test_port_imports_no_jax():
                  "scripts.probe_mosaic4", "ops.kernels_scripts",
                  "ops.qp_ref", "control.safety", "runtime.golden",
                  "sim.closed_loop", "scripts.run_golden_dense",
-                 "scripts.run_golden_amortized"):
+                 "scripts.run_golden_amortized", "runtime.realtime",
+                 "runtime.telemetry", "runtime.checkpoint"):
         assert f"{port.__name__}.{name}" in mods, name
 
 
@@ -62,11 +64,12 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     """With no card and no device="cpu", every entry point raises."""
     from a1_qp_mpc_controller_tpu_torch.config import load_profile
     from a1_qp_mpc_controller_tpu_torch.parallel import batched
-    from a1_qp_mpc_controller_tpu_torch.runtime import golden
+    from a1_qp_mpc_controller_tpu_torch.runtime import golden, realtime
     from a1_qp_mpc_controller_tpu_torch.scripts import (
         micro_admm, probe_mosaic, probe_mosaic3,
     )
-    from a1_qp_mpc_controller_tpu_torch.sim import closed_loop
+    from a1_qp_mpc_controller_tpu_torch.sim import closed_loop, terrain
+    from a1_qp_mpc_controller_tpu_torch.tensors import broadcast_batch
     from a1_qp_mpc_controller_tpu_torch.types import JoyCmd
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -99,6 +102,21 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         lambda: micro_admm.make_inputs(2),
         lambda: probe_mosaic.run_ladder(probe_mosaic.LADDER[:1]),
         lambda: probe_mosaic3.kkt_batch(2),
+        lambda: terrain.Terrain.slope(2, 0.1),
+        lambda: terrain.Terrain.stairs(2),
+        lambda: batched.randomize_terrain(torch.Generator(), 2),
+        lambda: batched.make_batch(cfg, torch.Generator(), 2, params),
+        lambda: batched.batched_step(
+            cfg, pb, terr, carry, JoyCmd.zeros(device="cpu"),
+            cfg.control_dt),
+        lambda: batched.batched_rollout(
+            cfg, pb, terr, carry,
+            closed_loop.joy_schedule(1, device="cpu"), 1),
+        lambda: realtime.unpack_sensors(np.zeros(44, np.float32)),
+        lambda: realtime.run_dual_rate_sim(
+            cfg, broadcast_batch(params, 1),
+            terrain.Terrain.flat(1, device="cpu"), 0.01,
+            JoyCmd.zeros(device="cpu")),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
