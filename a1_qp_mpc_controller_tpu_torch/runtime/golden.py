@@ -215,6 +215,12 @@ class Solves:
 
 
 def _dev_report(devs: np.ndarray, tol: float) -> dict:
+    """The deviations' summary; a run without a sample (shorter than its
+    walk onset) fails its gate: no share within ``tol``."""
+    if not len(devs):
+        nan = float("nan")
+        return {"samples": 0, "max_dev_N": nan, "mean_dev_N": nan,
+                "p95_dev_N": nan, "frac_within_tol": 0.0, "tol_N": tol}
     return {
         "samples": int(len(devs)),
         "max_dev_N": float(devs.max()),

@@ -95,15 +95,17 @@ def rollout(cfg: A1Config, params: RobotParams,
 
 
 def joy_schedule(n_steps: int, *, walk_after: int | None = None,
-                 velx: float = 0.0, device=CUDA) -> JoyCmd:
+                 velx: float = 0.0, vely: float = 0.0,
+                 yaw_rate: float = 0.0, device=CUDA) -> JoyCmd:
     """A (T,)-leading JoyCmd sequence: stand until ``walk_after``, then
-    walk forward at ``velx``."""
+    walk with the given velocity command."""
     device = resolve_device(device)
     t = torch.arange(n_steps, device=device)
     walking = (torch.zeros(n_steps, dtype=torch.bool, device=device)
                if walk_after is None else t >= walk_after)
     z = torch.zeros(n_steps, device=device)
-    return JoyCmd(velx=walking.float() * velx, vely=z, velz=z,
-                  roll_rate=z, pitch_rate=z, yaw_rate=z,
+    w = walking.float()
+    return JoyCmd(velx=w * velx, vely=w * vely, velz=z,
+                  roll_rate=z, pitch_rate=z, yaw_rate=w * yaw_rate,
                   ctrl_state=walking.to(torch.int32),
                   exit=torch.zeros(n_steps, dtype=torch.bool, device=device))

@@ -144,7 +144,20 @@ Phases, in order:
    to ``tests/test_runtime.py``'s asserts; the kernels' launches counted
    from 0 just before each and read just after (neither runs a hand
    kernel: the tick's solve is ``control_tick``'s, as in the JAX
-   package);
+   package); then the runtime and the CLI (phase 6g): the native
+   executor (``runtime/native.py``) built with g++ from the port's
+   ``native/rt_executor.cc`` and held to ``tests/test_runtime.py``'s ring
+   and loop checks, a raising callback failing ``stop()`` with its first
+   exception; ``RealtimeRunner`` for 1 s in each schedule (sim parity,
+   and the EKF at the 500 Hz sensor rate), its telemetry records counted
+   against its ticks, the plant finite with 0.1 < z < 0.5, its tick also
+   timed alone; then the five CLI commands (``python -m
+   a1_qp_mpc_controller_tpu_torch sim|realtime|batch|golden|wire``) and
+   the two time-source refusals, all at once as subprocesses on the
+   card, each exiting as the JAX package's would, while the wire loop
+   runs here in the native format for 1 s (500 frames, 400 ticks) and in
+   the SDK format for 0.5 s (250, 200), each after its handshake, under
+   ``tests/test_wire.py``'s assertions;
 7. one JSON line listing each kernel, then the device line.
 
 Every failed check raises. The script needs a CUDA card and the
@@ -376,6 +389,31 @@ DUAL_RATE_SCHEDULE = dict(mpc_qp_iters=50, mpc_solver_mode="fixed")
 DUAL_RATE_STEPS = dict(est_steps=1000, ctrl_steps=800)
 DUAL_RATE_Z = (0.2, 0.4)       # m, the height held
 DUAL_RATE_MIN_X = 0.1          # m, walked forward
+# phase 6g: the runtime and the CLI (tests/test_runtime.py, test_wire.py)
+RUNNER = dict(mpc_iters=50, solver_mode="fixed")   # the runner's defaults
+RUNNER_SECONDS = 1.0
+RUNNER_EVERY = 2               # telemetry records: one in 2 ticks
+RUNNER_Z = (0.1, 0.5)          # m, tests/test_runtime.py's smoke
+WIRE_RUNS = (("native", 1.0, 10, 500, 400), ("sdk", 0.5, 5, 250, 200))
+WIRE_Z = (0.2, 0.4)            # m, tests/test_wire.py
+CLI = "a1_qp_mpc_controller_tpu_torch"
+CLI_COMMANDS = {
+    "sim": ["sim", "--seconds", "0.5", "--mpc-iters", "25",
+            "--solver-mode", "fixed"],
+    "realtime": ["realtime", "--seconds", "0.5", "--walk"],
+    "batch": ["batch"],
+    "golden": ["golden", "--seconds", "2", "--sample-every", "50"],
+    "wire": ["wire", "--seconds", "0.5"],
+}
+# tests/test_runtime.py's refusals: a wall-clock profile for a simulated
+# time executor and the converse
+CLI_REFUSALS = {
+    "sim_hardware_profile": ["sim", "--profile", "hardware_qp", "--seconds",
+                             "0.01"],
+    "wire_sim_profile": ["wire", "--profile", "gazebo_mpc", "--seconds",
+                         "0.01"],
+}
+CLI_TIMEOUT_S = 300
 
 
 def log(*a):
@@ -429,7 +467,8 @@ class Port:
                      "parallel.batched", "sim.plant", "sim.closed_loop",
                      "sim.terrain", "runtime.components",
                      "runtime.profiling", "runtime.golden",
-                     "runtime.realtime", "scripts.run_golden_dense",
+                     "runtime.realtime", "runtime.native",
+                     "runtime.wire", "scripts.run_golden_dense",
                      "scripts.micro_admm",
                      "scripts.probe_mosaic", "scripts.probe_mosaic2",
                      "scripts.probe_mosaic3", "scripts.probe_mosaic4"):
@@ -2098,6 +2137,282 @@ def phase_dual_rate(port, device):
     return rep
 
 
+def executor_checks(port) -> dict:
+    """``tests/test_runtime.py``'s ring and loop checks on the port's own
+    build of ``native/rt_executor.cc``, and a raising callback: its first
+    exception from ``stop()``, the callback not called again."""
+    import numpy as np
+    nat = port.native
+    t0 = time.perf_counter()
+    lib = nat.build()
+    build_s = time.perf_counter() - t0
+    ring = nat.SensorRing(4)
+    assert ring.pop_latest() is None
+    for i in range(10):
+        ring.push(np.full(4, float(i), np.float32))
+    assert (ring.pop_latest() == 9.0).all() and ring.pop_latest() is None
+    ring = nat.SensorRing(2, capacity_pow2=2)
+    for i in range(10):
+        ring.push(np.full(2, float(i), np.float32))
+    assert ring.dropped > 0 and (ring.pop_latest() == 9.0).all()
+    for _ in range(3):     # the best of 3, as the test
+        count = [0]
+        loop = nat.RtLoop(0.005, lambda _t: count.__setitem__(
+            0, count[0] + 1), compensate=True)
+        loop.start()
+        time.sleep(0.25)
+        loop.stop()
+        rate = loop.stats()
+        assert rate["iterations"] == count[0], rate
+        if (30 <= rate["iterations"] <= 60
+                and rate["missed_deadlines"] == 0
+                and rate["mean_jitter_ms"] < 1.0):
+            break
+    else:
+        raise AssertionError(f"RtLoop at 5 ms: {rate}")
+    loop = nat.RtLoop(0.005, lambda _t: time.sleep(0.01), compensate=True)
+    loop.start()
+    time.sleep(0.2)
+    loop.stop()
+    over = loop.stats()
+    assert over["missed_deadlines"] == over["iterations"] > 0, over
+    calls = []
+
+    def fails(tick):
+        calls.append(tick)
+        if tick >= 2:
+            raise ValueError(f"tick {tick}")
+
+    loop = nat.RtLoop(0.002, fails, compensate=False)
+    loop.start()
+    deadline = time.monotonic() + 10.0
+    while loop.error is None and time.monotonic() < deadline:
+        time.sleep(0.005)
+    try:
+        loop.stop()
+        raise AssertionError("a raising callback did not fail stop()")
+    except ValueError as e:
+        assert str(e) == "tick 2" and calls == [0, 1, 2], (e, calls)
+    return dict(library=str(lib.relative_to(ROOT)), build_s=build_s,
+                loop_5ms=rate, overrun=over)
+
+
+def tick_alone(port, runner, rate, reps: int = 10) -> dict:
+    """The runner's control tick (``control_tick``, or
+    ``control_tick_noest`` in the sensor-rate schedule) on its state after
+    the run, without the loops' threads: p50 and mean ms over ``reps``
+    calls, each ended by a synchronize (host clock)."""
+    import torch
+    r, ctl = runner, port.controller
+    sensors = port.plant.read_sensors(r.params, r.ps, r.prev_vel, r.dt)
+    fn = ((lambda: ctl.control_tick_noest(r.cfg, r.params, r.cs, r.mem,
+                                          r.joy, r.dt)) if rate else
+          (lambda: ctl.control_tick(r.cfg, r.params, r.cs, r.mem, sensors,
+                                    r.joy, r.dt)))
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return dict(p50=statistics.median(times), mean=statistics.mean(times))
+
+
+def runner_run(port, device, schedule: str) -> dict:
+    """``RealtimeRunner`` for ``RUNNER_SECONDS`` in one schedule, its
+    telemetry to a temporary JSONL whose records must number its ticks
+    over ``RUNNER_EVERY``; the plant finite, its height in ``RUNNER_Z``."""
+    import math
+    import tempfile
+    k = port.kernels
+    rate = 500.0 if schedule == "sensor_rate_ekf" else None
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "live.jsonl"
+        with port.realtime.RealtimeRunner(
+                estimation_rate_hz=rate, telemetry_jsonl=str(path),
+                telemetry_every=RUNNER_EVERY, device=device,
+                **RUNNER) as runner:
+            k.reset_launches()
+            stats = runner.run(RUNNER_SECONDS)
+            launches = {name: n for name, n in k.launches.items() if n}
+            stats["tick_alone_ms"] = tick_alone(port, runner, rate)
+        records = [json.loads(line)
+                   for line in path.read_text().splitlines()]
+    stats.update(schedule=schedule, records=len(records), launches=launches)
+    z = stats["root_pos"][2]
+    log(f"  runner {schedule} ({RUNNER_SECONDS} s, {RUNNER}): "
+        + ", ".join(f"{key} {stats.get(key)}" for key in (
+            "iterations", "missed_deadlines", "ticks", "solve_p50_ms",
+            "solve_p99_ms", "mean_work_ms", "max_work_ms", "ring_dropped",
+            "root_pos", "records", "tick_alone_ms"))
+        + f"; warm-up {stats['warm_s']:.2f} s; kernel launches "
+        f"{launches or 'none'}")
+    if (stats["iterations"] <= 0 or stats["ticks"] <= 0
+            or not all(math.isfinite(v) for v in stats["root_pos"])
+            or not RUNNER_Z[0] < z < RUNNER_Z[1]
+            or len(records) != stats["ticks"] // RUNNER_EVERY
+            or any(r["tick"] != (i + 1) * RUNNER_EVERY
+                   for i, r in enumerate(records))):
+        raise AssertionError(f"RealtimeRunner {schedule}: {stats}")
+    return stats
+
+
+def wire_run(port, device, fmt: str, seconds: float, n_hs: int,
+             frames: int, ticks: int) -> dict:
+    """``tests/test_wire.py``'s loop in ``fmt``: the handshake served from
+    a thread (the robot sees only the zero-torque burst), then ``seconds``
+    of the lock-step exchange, held to the test's assertions."""
+    import threading
+    import torch
+    wire, k = port.wire, port.kernels
+    cfg, params = port.config.load_profile("gazebo_mpc", device=device)
+    cfg = dataclasses.replace(cfg, mpc_qp_iters=50, mpc_solver_mode="fixed")
+    params = port.tensors.broadcast_batch(params, 1)
+    mock = wire.MockA1Robot(params, port.terrain.Terrain.flat(
+        1, device=device), wire_format=fmt, device=device)
+    runner = wire.HardwareWireRunner(cfg, params, mock.addr,
+                                     wire_format=fmt, device=device)
+    try:
+        t = threading.Thread(target=lambda: [mock.serve_once()
+                                             for _ in range(n_hs)])
+        t.start()
+        got = runner.handshake(n_hs)
+        t.join(timeout=60)
+        hs = dict(replies=got, zero_torque=mock.zero_torque_cmds,
+                  nonzero_seen=mock.nonzero_seen)
+        k.reset_launches()
+        t0 = time.perf_counter()
+        rep = runner.run(seconds, port.types.JoyCmd.zeros(device=device),
+                         mock)
+        torch.cuda.synchronize()
+        rep["wall_s"] = time.perf_counter() - t0
+        rep["launches"] = {name: n for name, n in k.launches.items() if n}
+    finally:
+        runner.close()
+        mock.close()
+    rep.update(format=fmt, seconds=seconds, handshake=hs)
+    log(f"  wire {fmt} ({seconds} s after a handshake of {n_hs}): "
+        f"{rep['frames']} frames, {rep['ctrl_steps']} control ticks, "
+        f"handshake {hs}, final root {rep['final_root']}, nan {rep['nan']}, "
+        f"ring dropped {rep['ring_dropped']}, {rep['wall_s']:.2f} s wall "
+        f"({rep['wall_s'] / rep['frames'] * 1e3:.2f} ms a frame); kernel "
+        f"launches {rep['launches'] or 'none'}")
+    if (hs != dict(replies=n_hs, zero_torque=n_hs, nonzero_seen=False)
+            or rep["frames"] != frames or rep["ctrl_steps"] != ticks
+            or rep["nan"]
+            or not WIRE_Z[0] < rep["final_root"][2] < WIRE_Z[1]):
+        raise AssertionError(f"wire {fmt}: {rep}")
+    return rep
+
+
+def cli_run(name: str, args: list) -> dict:
+    """One CLI command in a subprocess, on the card: exit code, wall
+    time, its JSON (stdout), the tail of its errors."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", CLI, *args], cwd=ROOT,
+                         capture_output=True, text=True,
+                         timeout=CLI_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    try:
+        result = json.loads(out.stdout) if out.stdout.strip() else None
+    except json.JSONDecodeError:
+        result = out.stdout[-2000:]
+    rec = dict(args=args, rc=out.returncode, wall_s=wall, json=result,
+               stderr_tail=out.stderr[-2000:])
+    log(f"  cli {name}: python -m {CLI} {' '.join(args)}: rc "
+        f"{out.returncode}, {wall:.1f} s wall; "
+        + json.dumps(result if out.returncode == 0 or result
+                     else out.stderr[-300:]))
+    return rec
+
+
+def cli_runs(commands: dict, beside):
+    """Every command at once, a subprocess each, a thread waiting on each,
+    while ``beside()`` runs in this process; each command's wall time is
+    its own process's, under the others' load. Returns (the commands'
+    records, what ``beside`` returned)."""
+    import threading
+    done = {}
+
+    def one(name, args):
+        try:
+            done[name] = cli_run(name, args)
+        except Exception as e:   # a timeout: cli_checks fails it
+            done[name] = dict(args=args, rc=None, wall_s=None, json=None,
+                              stderr_tail=repr(e))
+
+    threads = [threading.Thread(target=one, args=item)
+               for item in commands.items()]
+    for t in threads:
+        t.start()
+    try:
+        other = beside()
+    finally:
+        for t in threads:
+            t.join()
+    return {name: done[name] for name in commands}, other
+
+
+def cli_checks(cli: dict) -> None:
+    """Each command exits as the JAX package's would on this protocol:
+    0 with a finite result (the golden gate's every sample within its
+    tolerance, the wire's frame counts), the refusals non-zero with the
+    startup precondition's message."""
+    import math
+    bad = [name for name, rec in cli.items()
+           if name in CLI_COMMANDS and (rec["rc"] != 0
+                                        or not isinstance(rec["json"],
+                                                          dict))]
+    if not bad:
+        sim, rt, batch, gate, wire = (cli[n]["json"] for n in CLI_COMMANDS)
+        checks = {
+            "sim": not sim["nan"] and sim["ticks"] == 200,
+            "realtime": rt["iterations"] > 0 and all(
+                math.isfinite(v) for v in rt["root_pos"])
+            and RUNNER_Z[0] < rt["root_pos"][2] < RUNNER_Z[1],
+            "batch": batch["alive_frac"] == 1.0,
+            "golden": not gate["nan"] and gate["samples"] == 8
+            and gate["frac_within_tol"] == 1.0,
+            "wire": wire["frames"] == 250 and wire["ctrl_steps"] == 200
+            and wire["handshake_replies"] == 10 and not wire["nan"]
+            and WIRE_Z[0] < wire["final_root"][2] < WIRE_Z[1],
+        }
+        bad = [name for name, ok in checks.items() if not ok]
+    bad += [name for name in CLI_REFUSALS
+            if cli[name]["rc"] == 0
+            or "startup precondition" not in cli[name]["stderr_tail"]]
+    if bad:
+        raise AssertionError(f"CLI commands {bad}: "
+                             + json.dumps({n: cli[n] for n in bad}))
+
+
+def phase_runtime(port, device):
+    """The runtime and the CLI on the card: the native executor built
+    from the port's source and checked; ``RealtimeRunner`` in both
+    schedules, alone; then each of the five CLI commands as a user runs
+    it and the two refusals, all at once (a subprocess each), while the
+    wire loop runs here in both formats. No hand kernel runs here (the
+    tick is ``control_tick``'s): the launches are read around the
+    in-process runs and printed."""
+    executor = executor_checks(port)
+    log(f"  executor: {executor}")
+    runners = {schedule: runner_run(port, device, schedule)
+               for schedule in ("sim", "sensor_rate_ekf")}
+    t0 = time.perf_counter()
+    cli, wires = cli_runs(
+        {**CLI_COMMANDS, **CLI_REFUSALS},
+        beside=lambda: {fmt: wire_run(port, device, fmt, *rest)
+                        for fmt, *rest in WIRE_RUNS})
+    log(f"  cli: {len(cli)} commands at once, beside the wire loops, in "
+        f"{time.perf_counter() - t0:.1f} s")
+    cli_checks(cli)
+    return dict(executor=executor, runner=runners, wire=wires,
+                cli={name: {k: v for k, v in rec.items()
+                            if k != "stderr_tail"}
+                     for name, rec in cli.items()})
+
+
 def kernel_entry(name, source, replaces, rows, launches, lib):
     """The kernels line's entry: the headline shape's numbers (the first
     row), every other shape beside them."""
@@ -2241,6 +2556,8 @@ def main() -> int:
     terrain = phase_terrain(port, device)
     log("[6f] dual-rate schedule")
     dual_rate = phase_dual_rate(port, device)
+    log("[6g] runtime and CLI")
+    runtime = phase_runtime(port, device)
 
     log("[7] kernels")
     # each kernel's launches on the path it is read for: K1/K2 on the
@@ -2326,6 +2643,7 @@ def main() -> int:
                     "stand": stand, "small_stand": small_stand,
                     "stand_gate": gate, "golden_gates": golden,
                     "terrain_eval": terrain, "dual_rate": dual_rate,
+                    "runtime": runtime,
                     "seconds": time.perf_counter() - t_start}))
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -43,7 +43,10 @@ def test_port_imports_no_jax():
                  "ops.qp_ref", "control.safety", "runtime.golden",
                  "sim.closed_loop", "scripts.run_golden_dense",
                  "scripts.run_golden_amortized", "runtime.realtime",
-                 "runtime.telemetry", "runtime.checkpoint"):
+                 "runtime.telemetry", "runtime.checkpoint",
+                 "runtime.native", "runtime.wire", "runtime.sdk_wire",
+                 "adapters.gazebo", "adapters.hardware", "adapters.isaac",
+                 "adapters.joystick", "__main__"):
         assert f"{port.__name__}.{name}" in mods, name
 
 
@@ -52,7 +55,9 @@ def test_port_imports_no_jax():
                                      "a1_qp_mpc_controller_tpu."])
 def test_port_sources_name_no_jax(pattern):
     files = [ROOT / "chip_smoke.py"] + sorted(
-        p for p in PORT_DIR.rglob("*") if p.suffix in (".py", ".cu", ".cuh"))
+        p for p in PORT_DIR.rglob("*")
+        if p.suffix in (".py", ".cu", ".cuh", ".cc"))
+    assert PORT_DIR / "native" / "rt_executor.cc" in files
     hits = [f"{p.relative_to(ROOT)}:{i}"
             for p in files
             for i, line in enumerate(p.read_text().splitlines(), 1)
@@ -62,9 +67,12 @@ def test_port_sources_name_no_jax(pattern):
 
 def test_entry_points_raise_without_a_card(monkeypatch):
     """With no card and no device="cpu", every entry point raises."""
+    from a1_qp_mpc_controller_tpu_torch.adapters import hardware, joystick
     from a1_qp_mpc_controller_tpu_torch.config import load_profile
     from a1_qp_mpc_controller_tpu_torch.parallel import batched
-    from a1_qp_mpc_controller_tpu_torch.runtime import golden, realtime
+    from a1_qp_mpc_controller_tpu_torch.runtime import (
+        golden, realtime, sdk_wire, wire,
+    )
     from a1_qp_mpc_controller_tpu_torch.scripts import (
         micro_admm, probe_mosaic, probe_mosaic3,
     )
@@ -117,6 +125,18 @@ def test_entry_points_raise_without_a_card(monkeypatch):
             cfg, broadcast_batch(params, 1),
             terrain.Terrain.flat(1, device="cpu"), 0.01,
             JoyCmd.zeros(device="cpu")),
+        lambda: realtime.RealtimeRunner(),
+        lambda: wire.MockA1Robot(broadcast_batch(params, 1),
+                                 terrain.Terrain.flat(1, device="cpu")),
+        lambda: wire.HardwareWireRunner(cfg, broadcast_batch(params, 1),
+                                        ("127.0.0.1", 9)),
+        lambda: wire.unpack_low_state(wire.pack_low_state(
+            0, *(np.zeros(k, np.float32) for k in (4, 3, 3, 12, 12, 4)))),
+        lambda: sdk_wire.unpack_low_state_sdk(sdk_wire.pack_low_state_sdk(
+            0, np.array([1, 0, 0, 0], np.float32),
+            *(np.zeros(k, np.float32) for k in (3, 3, 12, 12, 4)))),
+        lambda: hardware.make_foot_force_filter(2),
+        lambda: joystick.JoyState.init(),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
