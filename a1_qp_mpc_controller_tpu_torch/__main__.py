@@ -5,6 +5,8 @@ MainIsaac, SURVEY.md §1 L5):
   python -m a1_qp_mpc_controller_tpu_torch sim       # closed-loop rollout (batch of 1)
   python -m a1_qp_mpc_controller_tpu_torch realtime  # wall-clock 400 Hz harness
   python -m a1_qp_mpc_controller_tpu_torch batch     # domain-randomized batch
+  torchrun --nproc-per-node N -m a1_qp_mpc_controller_tpu_torch batch
+                                                     # the batch over N ranks
   python -m a1_qp_mpc_controller_tpu_torch golden    # force-trajectory gate
   python -m a1_qp_mpc_controller_tpu_torch wire      # UDP loop vs loopback mock robot
 
@@ -80,24 +82,23 @@ def cmd_sim(args) -> None:
     from a1_qp_mpc_controller_tpu_torch.sim import closed_loop as cl
     from a1_qp_mpc_controller_tpu_torch.tensors import tree_map
     cfg, params = _profile(args, "sim")
-    if args.plant == "joint":
-        raise SystemExit(
-            "--plant joint needs the 18-DoF articulated plant, "
-            "sim/joint_plant.py, which the port has not ported yet "
-            "(ROADMAP.md §1 item 5); --plant srb runs the SRB plant")
     cfg = dataclasses.replace(cfg, mpc_qp_iters=args.mpc_iters,
                               mpc_solver_mode=args.solver_mode)
     terrain = _parse_terrain(args.terrain, args.device)
     n_steps = int(args.seconds / cfg.control_dt)
     walk_after = int(args.walk_after / cfg.control_dt)
+    if args.plant == "joint":
+        from a1_qp_mpc_controller_tpu_torch.sim import joint_plant as plant
+    else:
+        from a1_qp_mpc_controller_tpu_torch.sim import plant
     height = 0.35 if args.profile.startswith("isaac") else 0.3
     carry = cl.make_standing_start(cfg, params, terrain, height=height,
-                                   device=args.device)
+                                   plant=plant, device=args.device)
     joy = cl.joy_schedule(n_steps, walk_after=walk_after, velx=args.velx,
                           vely=args.vely, yaw_rate=args.yaw_rate,
                           device=args.device)
     carry, trace = cl.rollout(cfg, params, terrain, carry, joy, n_steps,
-                              device=args.device)
+                              plant=plant, device=args.device)
     trace = tree_map(lambda a: a[:, 0], trace)   # the one scenario
     summary = telemetry.summarize_trace(trace)
     if args.trace_out:
@@ -128,22 +129,41 @@ def cmd_realtime(args) -> None:
 
 
 def cmd_batch(args) -> None:
+    """The domain-randomized batched rollout. Under a launcher
+    (``torchrun``) every rank joins the group and binds its card before
+    it makes a tensor, builds the same global batch from the seed, runs
+    its block of it, and rank 0 prints the global metrics; started
+    plainly it is one rank."""
+    import torch.distributed as dist
+
     from a1_qp_mpc_controller_tpu_torch.config import load_profile
     from a1_qp_mpc_controller_tpu_torch.parallel import batched
+    from a1_qp_mpc_controller_tpu_torch.parallel import mesh as meshmod
     from a1_qp_mpc_controller_tpu_torch.sim import closed_loop as cl
-    cfg, params = load_profile(args.profile, device=args.device)
-    _assert_time_source(cfg, args.profile, "batch",
-                        args.override_sim_time_check)
-    cfg = dataclasses.replace(cfg, mpc_qp_iters=args.mpc_iters,
-                              mpc_solver_mode="fixed")
-    pb, tb, carry = batched.make_batch(
-        cfg, torch.Generator().manual_seed(args.seed), args.n, params,
-        device=args.device)
-    joy_seq = cl.joy_schedule(args.steps, walk_after=args.steps // 4,
-                              velx=args.velx, device=args.device)
-    carry, errs, metrics = batched.batched_rollout(
-        cfg, pb, tb, carry, joy_seq, args.steps, device=args.device)
-    print(json.dumps({k: float(v) for k, v in metrics.items()}, indent=2))
+    rank_device = meshmod.multihost_init(device=args.device)
+    device = args.device if rank_device is None else rank_device
+    mesh = None if rank_device is None else meshmod.make_mesh()
+    try:
+        cfg, params = load_profile(args.profile, device=device)
+        _assert_time_source(cfg, args.profile, "batch",
+                            args.override_sim_time_check)
+        cfg = dataclasses.replace(cfg, mpc_qp_iters=args.mpc_iters,
+                                  mpc_solver_mode="fixed")
+        pb, tb, carry = (meshmod.shard_batch(tree, mesh)
+                         for tree in batched.make_batch(
+                             cfg, torch.Generator().manual_seed(args.seed),
+                             args.n, params, device=device))
+        joy_seq = cl.joy_schedule(args.steps, walk_after=args.steps // 4,
+                                  velx=args.velx, device=device)
+        carry, errs, metrics = batched.batched_rollout(
+            cfg, pb, tb, carry, joy_seq, args.steps, mesh=mesh,
+            device=device)
+        if meshmod.block(mesh)[0] == 0:
+            print(json.dumps({k: float(v) for k, v in metrics.items()},
+                             indent=2))
+    finally:
+        if mesh is not None:
+            dist.destroy_process_group()
 
 
 def cmd_golden(args) -> None:
@@ -215,8 +235,7 @@ def main(argv=None) -> None:
     common(ps)
     ps.add_argument("--plant", default="srb", choices=("srb", "joint"),
                     help="physics backend: SRB + massless legs (default) "
-                         "or 18-DoF articulated dynamics (not ported yet: "
-                         "refused)")
+                         "or 18-DoF articulated dynamics")
     ps.add_argument("--vely", type=float, default=0.0)
     ps.add_argument("--yaw-rate", type=float, default=0.0)
     ps.add_argument("--walk-after", type=float, default=1.0)
@@ -237,7 +256,7 @@ def main(argv=None) -> None:
                     profile="hardware_qp")  # wall-clock executor
 
     pb = sub.add_parser("batch", help="domain-randomized batched rollout "
-                                      "(one device, no mesh)")
+                                      "(split over a launcher's ranks)")
     common(pb)
     pb.add_argument("--n", type=int, default=64)
     pb.add_argument("--steps", type=int, default=400)

@@ -13,29 +13,28 @@ import torch
 
 from a1_qp_mpc_controller_tpu_torch.tensors import is_tensorclass
 
-_CAST = {np.dtype(np.float64): torch.float32, np.dtype(np.int64): torch.int32}
-
-
-def _leaf(value, device) -> torch.Tensor:
+def _leaf(value, device, float64) -> torch.Tensor:
     arr = np.asarray(value)
-    return torch.tensor(arr, dtype=_CAST.get(arr.dtype), device=device)
+    cast = {np.dtype(np.float64): float64, np.dtype(np.int64): torch.int32}
+    return torch.tensor(arr, dtype=cast.get(arr.dtype), device=device)
 
 
-def from_numpy(cls, tree: dict, device):
+def from_numpy(cls, tree: dict, device, float64=torch.float32):
     """Build ``cls`` (a tensor dataclass) from a nested dict of arrays;
-    float64 arrives as float32 and int64 as int32. Missing optional
-    fields (``None`` in the dict) stay ``None``."""
+    float64 arrives as ``float64`` (float32 unless asked: a float64
+    comparison passes ``torch.float64``) and int64 as int32. Missing
+    optional fields (``None`` in the dict) stay ``None``."""
     hints = typing.get_type_hints(cls)
     kwargs = {}
     for f in dataclasses.fields(cls):
         value = tree[f.name]
         hint = hints[f.name]
         if isinstance(value, dict):
-            kwargs[f.name] = from_numpy(hint, value, device)
+            kwargs[f.name] = from_numpy(hint, value, device, float64)
         elif value is None:
             kwargs[f.name] = None
         else:
-            kwargs[f.name] = _leaf(value, device)
+            kwargs[f.name] = _leaf(value, device, float64)
     return cls(**kwargs)
 
 

@@ -1,7 +1,10 @@
 """A1 leg kinematics (counterpart of ``models/kinematics.py``): closed-form
 FK, its closed-form Jacobian (the JAX package takes it with
-``jax.jacfwd``), the per-pose fan-out and damped-Newton IK. Every
-function broadcasts over leading axes (legs, scenarios).
+``jax.jacfwd``), the calibration derivatives ``dfk_drho``, ``dJ_dq`` and
+``dJ_drho`` (``torch.func.jacfwd`` of those closed forms, as the JAX
+package takes them with ``jax.jacfwd``), the per-pose fan-out and
+damped-Newton IK. Every function broadcasts over leading axes (legs,
+scenarios).
 
 Chain per leg: p(q) = [ox, oy, 0] + Rx(q0) ([0, d, 0] + Ry(q1) ([0, 0, -lu]
 + Ry(q2) [cx, cy, cz - ll])), rho_fix = (ox, oy, d, lu, ll),
@@ -58,6 +61,42 @@ def jac(q: torch.Tensor, rho_opt: torch.Tensor, rho_fix: torch.Tensor
     j2 = (fz, s0 * fx, -c0 * fx)
     return torch.stack([torch.stack([j0[r], j1[r], j2[r]], dim=-1)
                         for r in range(3)], dim=-2)
+
+
+def _per_leg(fn, *args: torch.Tensor) -> torch.Tensor:
+    """``fn`` of one leg's (q, rho_opt, rho_fix), ``torch.func.vmap``-ed
+    over the arguments' broadcast leading axes."""
+    lead = torch.broadcast_shapes(*(a.shape[:-1] for a in args))
+    flat = [a.expand(lead + a.shape[-1:]).reshape((-1,) + a.shape[-1:])
+            for a in args]
+    out = torch.func.vmap(fn)(*flat)
+    return out.reshape(lead + out.shape[1:])
+
+
+def _jac_flat(q, rho_opt, rho_fix):
+    return jac(q, rho_opt, rho_fix).reshape(9)
+
+
+def dfk_drho(q: torch.Tensor, rho_opt: torch.Tensor, rho_fix: torch.Tensor
+             ) -> torch.Tensor:
+    """d fk / d rho_opt, (..., 3, 3) (A1Kinematics::dfk_drho)."""
+    return _per_leg(torch.func.jacfwd(fk, argnums=1), q, rho_opt, rho_fix)
+
+
+def dJ_dq(q: torch.Tensor, rho_opt: torch.Tensor, rho_fix: torch.Tensor
+          ) -> torch.Tensor:
+    """(..., 9, 3): d J[i, j] / d q_k in row i * 3 + j, column k
+    (A1Kinematics::dJ_dq)."""
+    return _per_leg(torch.func.jacfwd(_jac_flat, argnums=0), q, rho_opt,
+                    rho_fix)
+
+
+def dJ_drho(q: torch.Tensor, rho_opt: torch.Tensor, rho_fix: torch.Tensor
+            ) -> torch.Tensor:
+    """(..., 9, 3): d J[i, j] / d rho_opt_k in row i * 3 + j, column k
+    (A1Kinematics::dJ_drho)."""
+    return _per_leg(torch.func.jacfwd(_jac_flat, argnums=1), q, rho_opt,
+                    rho_fix)
 
 
 def foot_fanout(joint_pos: torch.Tensor, joint_vel: torch.Tensor,

@@ -225,6 +225,20 @@ def reference_mpc_scaling(params, horizon: int = PLAN_HORIZON
     return qpx.compute_scaling(*reference_mpc_problem(params, horizon), 10)
 
 
+def reference_kkt_inverse(params, scaling: qpx.Scaling, rho: float,
+                          horizon: int = PLAN_HORIZON,
+                          eq_scale: float = 1.0) -> torch.Tensor:
+    """Exact scaled-KKT inverse (B, n, n) at each scenario's
+    representative instance: the seed for a Newton-Schulz solve
+    (``ops/qp.newton_schulz_inverse``), one inverse at init and none in
+    the hot path. ``params`` and ``scaling`` batched (B,)."""
+    p_mat, q_vec, a_mat, lb, ub = reference_mpc_problem(params, horizon)
+    sp = qpx.apply_scaling(p_mat, q_vec, a_mat, lb, ub, scaling)
+    rho_b = torch.full_like(params.robot_mass, rho)
+    return qpx._kkt_inverse(sp.P, sp.A, qpx._rho_vec(sp.l, sp.u, rho_b,
+                                                     eq_scale), 1e-6)
+
+
 def eliminate_swing(p_mat, q_vec, lb, ub, contacts, horizon: int):
     """Swing-leg variable elimination (static-shape mask form): zero the
     swing rows/columns of P (unit diagonal), zero their q entries and

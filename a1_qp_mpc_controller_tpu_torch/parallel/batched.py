@@ -70,6 +70,7 @@ from a1_qp_mpc_controller_tpu_torch.ops import qp as qpx
 from a1_qp_mpc_controller_tpu_torch.ops.kernels import (
     batched_inverse, batched_inverse_small,
 )
+from a1_qp_mpc_controller_tpu_torch.parallel import mesh as meshmod
 from a1_qp_mpc_controller_tpu_torch.sim import closed_loop as cl
 from a1_qp_mpc_controller_tpu_torch.sim import plant as plant_mod
 from a1_qp_mpc_controller_tpu_torch.sim import terrain as terrain_mod
@@ -759,6 +760,35 @@ def make_flat_batch(cfg: A1Config, generator: torch.Generator, n: int,
         device=device)
 
 
+def bench_state_from_params(cfg: A1Config, params: RobotParams,
+                            device=CUDA):
+    """The physical batched controller state of the given scenarios: a
+    standing pose on flat ground (``flat_batch_from_params``), sensors
+    read from ``sim.plant`` (joint angles from IK, real foot forces) and
+    the tick counter past the ``cfg.torque_warmup_ticks`` zero-torque
+    shield, so a tick does real torque work. Returns (params, cs, mem,
+    sensors)."""
+    _, _, carry = flat_batch_from_params(cfg, params, device=device)
+    dt = const(cfg.control_dt, params.robot_mass.dtype,
+               params.robot_mass.device)
+    sensors = plant_mod.read_sensors(params, carry.ps,
+                                     carry.prev_root_lin_vel, dt)
+    mem = carry.mem.replace(tick=torch.full_like(carry.mem.tick,
+                                                 cfg.torque_warmup_ticks))
+    return params, carry.cs, mem, sensors
+
+
+def make_bench_state(cfg: A1Config, generator: torch.Generator, n: int,
+                     base: RobotParams, device=CUDA):
+    """:func:`bench_state_from_params` of ``n`` randomized scenarios
+    (:func:`randomize_params`, draws from ``generator``): the
+    throughput benchmark's physical start. Returns (params, cs, mem,
+    sensors)."""
+    return bench_state_from_params(
+        cfg, randomize_params(generator, n, base, device=device),
+        device=device)
+
+
 def randomize_terrain(generator: torch.Generator, n: int,
                       max_pitch: float = 0.2, device=CUDA
                       ) -> terrain_mod.Terrain:
@@ -816,13 +846,15 @@ def batched_step(cfg: A1Config, params: RobotParams,
 def batched_rollout(cfg: A1Config, params: RobotParams,
                     terrain: terrain_mod.Terrain, carry: cl.LoopCarry,
                     joy_seq: JoyCmd, n_steps: int, substeps: int = 5, *,
-                    device=CUDA):
+                    mesh=None, device=CUDA):
     """:func:`batched_step` over every command of ``joy_seq`` ((T,) on
     each field, ``sim.closed_loop.joy_schedule``). Returns (carry, (T, B)
     height errors, metrics): ``mean_height_err`` and ``p95_height_err``
     over the last ``n_steps`` // 4 steps and ``alive_frac``, the share of
-    scenarios whose height is not NaN (0-d tensors; one card, so no
-    reduction across devices)."""
+    scenarios whose height is not NaN (0-d tensors). With a ``mesh``
+    (``parallel/mesh.py``) the batch is this rank's block and the metrics
+    are the global batch's: the means all-reduced as sums and counts, the
+    percentile over the errors gathered from every rank."""
     device = check_on(device, carry.ps.root_pos)
     dt = const(cfg.control_dt, carry.ps.root_pos.dtype, device)
     errs = []
@@ -833,9 +865,11 @@ def batched_rollout(cfg: A1Config, params: RobotParams,
         errs.append(err)
     errs = torch.stack(errs)
     tail = errs[-n_steps // 4:]
+    alive = (~torch.isnan(carry.ps.root_pos[:, 2])).float()
     metrics = {
-        "mean_height_err": tail.mean(),
-        "p95_height_err": torch.quantile(tail.flatten(), 0.95),
-        "alive_frac": (~torch.isnan(carry.ps.root_pos[:, 2])).float().mean(),
+        "mean_height_err": meshmod.mean(tail, mesh),
+        "p95_height_err": torch.quantile(
+            meshmod.gather(tail.T, mesh).flatten(), 0.95),
+        "alive_frac": meshmod.mean(alive, mesh),
     }
     return carry, errs, metrics

@@ -20,7 +20,7 @@ from a1_qp_mpc_controller_tpu_torch.types import CtrlMem, CtrlState, JoyCmd
 class LoopCarry:
     cs: CtrlState
     mem: CtrlMem
-    ps: plant_mod.PlantState
+    ps: plant_mod.PlantState      # or joint_plant.JointPlantState
     prev_root_lin_vel: torch.Tensor
 
 
@@ -44,11 +44,13 @@ class Trace:
 
 def make_standing_start(cfg: A1Config, params: RobotParams,
                         terrain: terrain_mod.Terrain, height: float = 0.3,
-                        device=CUDA) -> LoopCarry:
+                        plant=plant_mod, device=CUDA) -> LoopCarry:
     """Standing start for a batch; the controller's root state is seeded
     with the true pose so the first ticks (before the EKF converges) are
-    sane."""
-    ps = plant_mod.init_standing(params, terrain, height, device=device)
+    sane. ``plant`` selects the physics backend: ``sim.plant`` (SRB and
+    massless legs, the default) or ``sim.joint_plant`` (18-DoF
+    articulated)."""
+    ps = plant.init_standing(params, terrain, height, device=device)
     cs = CtrlState.init(cfg, params, device=device)
     cs = cs.replace(root_pos=ps.root_pos,
                     joy_body_height=torch.full_like(cs.joy_body_height,
@@ -61,24 +63,24 @@ def make_standing_start(cfg: A1Config, params: RobotParams,
 def rollout(cfg: A1Config, params: RobotParams,
             terrain: terrain_mod.Terrain, carry: LoopCarry,
             joy_seq: JoyCmd, n_steps: int, substeps: int = 5,
-            device=CUDA) -> tuple[LoopCarry, Trace]:
+            plant=plant_mod, device=CUDA) -> tuple[LoopCarry, Trace]:
     """Run ``n_steps`` control periods of ``read_sensors`` ->
     ``control_tick`` -> ``plant_step`` over the batch; ``joy_seq`` has a
-    leading (T,) axis on every field (:func:`joy_schedule`). Returns the
-    last carry and the Trace stacked on a leading T axis, the batch axis
-    after it. The plant is ``sim.plant``: the JAX package's ``plant=``
-    switch to the articulated plant waits for ``sim/joint_plant``."""
+    leading (T,) axis on every field (:func:`joy_schedule`). ``plant`` is
+    the physics backend module (``sim.plant`` or ``sim.joint_plant``),
+    which must match the carry's plant state. Returns the last carry and
+    the Trace stacked on a leading T axis, the batch axis after it."""
     device = check_on(device, carry.ps.root_pos)
     dt = const(cfg.control_dt, carry.ps.root_pos.dtype, device)
     traces = []
     for t in range(n_steps):
-        sensors = plant_mod.read_sensors(params, carry.ps,
-                                         carry.prev_root_lin_vel, dt)
+        sensors = plant.read_sensors(params, carry.ps,
+                                     carry.prev_root_lin_vel, dt)
         cs, mem, torques = control_tick(
             cfg, params, carry.cs, carry.mem, sensors,
             tree_map(lambda a: a[t], joy_seq), dt)
-        ps = plant_mod.plant_step(params, terrain, carry.ps, torques, dt,
-                                  substeps)
+        ps = plant.plant_step(params, terrain, carry.ps, torques, dt,
+                              substeps)
         carry = LoopCarry(cs=cs, mem=mem, ps=ps,
                           prev_root_lin_vel=carry.ps.root_lin_vel)
         traces.append(Trace(

@@ -34,6 +34,20 @@ def quat_to_rot(quat: torch.Tensor) -> torch.Tensor:
     ], dim=-2)
 
 
+def euler_to_quat(euler: torch.Tensor) -> torch.Tensor:
+    """(roll, pitch, yaw) -> quaternion (w,x,y,z), R = Rz(yaw) Ry(pitch)
+    Rx(roll)."""
+    hr, hp, hy = euler[..., 0] / 2, euler[..., 1] / 2, euler[..., 2] / 2
+    cr, sr = torch.cos(hr), torch.sin(hr)
+    cp, sp = torch.cos(hp), torch.sin(hp)
+    cy, sy = torch.cos(hy), torch.sin(hy)
+    w = cr * cp * cy + sr * sp * sy
+    x = sr * cp * cy - cr * sp * sy
+    y = cr * sp * cy + sr * cp * sy
+    z = cr * cp * sy - sr * sp * cy
+    return torch.stack([w, x, y, z], dim=-1)
+
+
 def rot_z(yaw: torch.Tensor) -> torch.Tensor:
     """Yaw-only rotation matrix."""
     c, s = torch.cos(yaw), torch.sin(yaw)

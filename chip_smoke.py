@@ -157,7 +157,21 @@ Phases, in order:
    card, each exiting as the JAX package's would, while the wire loop
    runs here in the native format for 1 s (500 frames, 400 ticks) and in
    the SDK format for 0.5 s (250, 200), each after its handshake, under
-   ``tests/test_wire.py``'s assertions;
+   ``tests/test_wire.py``'s assertions (among the processes also ``sim
+   --plant joint --seconds 0.5`` and ``batch`` over two ``torchrun``
+   ranks sharing the card, gloo, rank 0 printing the global metrics);
+   then the articulated plant (phase 6h): one ``_substep`` and one
+   ``plant_step`` at B = 1024 from seeded states on the card against the
+   CPU in float64 (every field within 1e-8, the flags equal) and float32
+   (``tests/test_torch_joint_plant.py``'s limits), the physics of
+   ``tests/test_joint_plant.py`` on the card, and its trot and Isaac walk
+   onset through ``rollout(plant=joint_plant)``, in two processes side by
+   side (``chip_smoke.py --joint-rollout NAME``), each with its wall time,
+   ms a tick, ``plant_step`` alone and its host reads; and the mesh
+   (phase 6i): ``entry.dryrun_multichip(1)`` under NCCL, K1, K2 and K3
+   launched and every case bit-equal to the same routes without the mesh,
+   and the port's worker as two gloo ranks on the card, equal to one
+   process's run of each rank's block;
 7. one JSON line listing each kernel, then the device line.
 
 Every failed check raises. The script needs a CUDA card and the
@@ -414,6 +428,42 @@ CLI_REFUSALS = {
                          "0.01"],
 }
 CLI_TIMEOUT_S = 300
+# phase 6g also runs the articulated plant's command and the batch over two
+# ranks (a launcher's processes sharing the one card, so gloo)
+CLI_EXTRA = {
+    "sim_joint": ["sim", "--plant", "joint", "--seconds", "0.5",
+                  "--mpc-iters", "25", "--solver-mode", "fixed"],
+    "batch_2_ranks": ["batch"],
+}
+# batch's defaults (__main__.py), for its blocks run in turn in this process
+BATCH_DEFAULTS = dict(profile="gazebo_mpc", mpc_iters=50, velx=0.3, n=64,
+                      steps=400, seed=0)
+BATCH_RANKS = 2
+BATCH_REL_TOL = 1e-6          # the two ranks' metrics vs the blocks in turn
+TORCHRUN = ["-m", "torch.distributed.run", "--standalone",
+            "--nproc-per-node", "2"]
+# phase 6h: the articulated plant (tests/test_joint_plant.py,
+# tests/test_torch_joint_plant.py)
+JOINT_BATCH = 1024
+JOINT_DT, JOINT_SUBSTEPS = 0.0025, 10
+JOINT_F64_TOL = 1e-8          # every field, card (cuSOLVER) vs CPU (LAPACK)
+# pose and velocities in float32: 1e-5 plus 1e-4 of the field's largest
+# magnitude (tests/test_torch_joint_plant.py's limits; the velocities are
+# a 30 x 30 solve's output, whose rounding scales with the largest one)
+JOINT_F32_RTOL, JOINT_F32_ATOL = 1e-4, 1e-5
+JOINT_FORCE_TOL = 1e-2        # N, the normal forces in float32
+JOINT_ROLLOUTS = {            # tests/test_joint_plant.py:129, :142
+    # heights held from 200 ticks into the walk (the trot's [600:])
+    "trot": dict(profile="gazebo_mpc", n_steps=1400, walk_after=400,
+                 velx=0.3, height=0.3),
+    "isaac_onset": dict(profile="isaac_mpc", n_steps=900, walk_after=400,
+                        velx=0.2, height=0.35),
+}
+JOINT_MPC_ITERS, JOINT_ROLLOUT_SUBSTEPS = 120, 5
+JOINT_ROLLOUT_TIMEOUT_S = 600
+TROT_MIN_X, TROT_Z = 0.4, (0.22, 0.40)
+# phase 6i: the mesh
+MESH_REL_TOL = 1e-6           # the ranks' reduced values vs one process's
 
 
 def log(*a):
@@ -469,7 +519,9 @@ class Port:
                      "runtime.profiling", "runtime.golden",
                      "runtime.realtime", "runtime.native",
                      "runtime.wire", "scripts.run_golden_dense",
-                     "scripts.micro_admm",
+                     "scripts.micro_admm", "sim.joint_plant",
+                     "models.kinematics", "utils.mathx",
+                     "parallel.mesh", "entry", "scripts.multihost_worker",
                      "scripts.probe_mosaic", "scripts.probe_mosaic2",
                      "scripts.probe_mosaic3", "scripts.probe_mosaic4"):
             setattr(self, name.split(".")[-1],
@@ -2310,7 +2362,9 @@ def cli_run(name: str, args: list) -> dict:
     """One CLI command in a subprocess, on the card: exit code, wall
     time, its JSON (stdout), the tail of its errors."""
     t0 = time.perf_counter()
-    out = subprocess.run([sys.executable, "-m", CLI, *args], cwd=ROOT,
+    launcher = TORCHRUN if name == "batch_2_ranks" else []
+    out = subprocess.run([sys.executable, *launcher, "-m", CLI, *args],
+                         cwd=ROOT,
                          capture_output=True, text=True,
                          timeout=CLI_TIMEOUT_S)
     wall = time.perf_counter() - t0
@@ -2320,7 +2374,8 @@ def cli_run(name: str, args: list) -> dict:
         result = out.stdout[-2000:]
     rec = dict(args=args, rc=out.returncode, wall_s=wall, json=result,
                stderr_tail=out.stderr[-2000:])
-    log(f"  cli {name}: python -m {CLI} {' '.join(args)}: rc "
+    log(f"  cli {name}: python {' '.join(launcher)} -m {CLI} "
+        f"{' '.join(args)}: rc "
         f"{out.returncode}, {wall:.1f} s wall; "
         + json.dumps(result if out.returncode == 0 or result
                      else out.stderr[-300:]))
@@ -2354,18 +2409,62 @@ def cli_runs(commands: dict, beside):
     return {name: done[name] for name in commands}, other
 
 
-def cli_checks(cli: dict) -> None:
+def batch_in_turn(port, device) -> dict:
+    """``batch`` at its defaults as ``BATCH_RANKS`` ranks would run it,
+    but in this process, one rank's block after the other, each block
+    with its own ``batched_rollout``; the metrics taken here over the
+    whole batch (the errors of every block together). Beside them, what
+    two wrong reductions of a sharded run would give: rank 0's block
+    alone, and the blocks' p95 averaged."""
+    import torch
+    d, mesh, batched = BATCH_DEFAULTS, port.mesh, port.batched
+    cfg, params = port.config.load_profile(d["profile"], device=device)
+    cfg = dataclasses.replace(cfg, mpc_qp_iters=d["mpc_iters"],
+                              mpc_solver_mode="fixed")
+    trees = batched.make_batch(cfg, torch.Generator().manual_seed(d["seed"]),
+                               d["n"], params, device=device)
+    joy = port.closed_loop.joy_schedule(
+        d["steps"], walk_after=d["steps"] // 4, velx=d["velx"],
+        device=device)
+    t0 = time.perf_counter()
+    tails, alive = [], []
+    for idx in range(BATCH_RANKS):
+        pb, tb, carry = (mesh.take_block(t, idx, BATCH_RANKS)
+                         for t in trees)
+        carry, errs, _ = batched.batched_rollout(cfg, pb, tb, carry, joy,
+                                                 d["steps"], device=device)
+        tails.append(errs[-d["steps"] // 4:].T)
+        alive.append(~torch.isnan(carry.ps.root_pos[:, 2]))
+    p95 = lambda x: float(torch.quantile(x.flatten(), 0.95))
+    whole = torch.cat(tails)
+    rep = dict(
+        wall_s=time.perf_counter() - t0,
+        metrics=dict(mean_height_err=float(whole.double().mean()),
+                     p95_height_err=p95(whole),
+                     alive_frac=float(torch.cat(alive).double().mean())),
+        rank0_p95=p95(tails[0]),
+        mean_of_block_p95=sum(p95(t) for t in tails) / len(tails))
+    log(f"  batch blocks in turn ({BATCH_RANKS} of {d['n'] // BATCH_RANKS}, "
+        f"{d['steps']} steps, this process): {rep['wall_s']:.1f} s, "
+        f"{rep['metrics']}; rank 0's p95 alone {rep['rank0_p95']}, the "
+        f"blocks' p95 averaged {rep['mean_of_block_p95']}")
+    return rep
+
+
+def cli_checks(cli: dict, in_turn: dict) -> None:
     """Each command exits as the JAX package's would on this protocol:
     0 with a finite result (the golden gate's every sample within its
     tolerance, the wire's frame counts), the refusals non-zero with the
-    startup precondition's message."""
+    startup precondition's message; ``batch`` over two ranks prints the
+    metrics of the whole batch, those of its blocks run in turn
+    (:func:`batch_in_turn`) within ``BATCH_REL_TOL``."""
     import math
     bad = [name for name, rec in cli.items()
-           if name in CLI_COMMANDS and (rec["rc"] != 0
-                                        or not isinstance(rec["json"],
-                                                          dict))]
+           if name in {**CLI_COMMANDS, **CLI_EXTRA}
+           and (rec["rc"] != 0 or not isinstance(rec["json"], dict))]
     if not bad:
         sim, rt, batch, gate, wire = (cli[n]["json"] for n in CLI_COMMANDS)
+        joint, ranks = (cli[n]["json"] for n in CLI_EXTRA)
         checks = {
             "sim": not sim["nan"] and sim["ticks"] == 200,
             "realtime": rt["iterations"] > 0 and all(
@@ -2377,7 +2476,20 @@ def cli_checks(cli: dict) -> None:
             "wire": wire["frames"] == 250 and wire["ctrl_steps"] == 200
             and wire["handshake_replies"] == 10 and not wire["nan"]
             and WIRE_Z[0] < wire["final_root"][2] < WIRE_Z[1],
+            "sim_joint": not joint["nan"] and joint["ticks"] == 200
+            and WIRE_Z[0] < joint["final_pos"][2] < WIRE_Z[1],
+            "batch_2_ranks": ranks["alive_frac"] == 1.0
+            and ranks.keys() == batch.keys() == in_turn["metrics"].keys()
+            and all(math.isclose(ranks[k], v, rel_tol=BATCH_REL_TOL)
+                    for k, v in in_turn["metrics"].items()),
         }
+        log("  batch over two ranks against its blocks in turn, relative: "
+            + json.dumps({k: abs(ranks[k] - v) / abs(v) if v else
+                          abs(ranks[k]) for k, v in
+                          in_turn["metrics"].items()})
+            + "; against the one-rank run of 64: "
+            + json.dumps({k: abs(ranks[k] - v) / abs(v) if v else
+                          abs(ranks[k]) for k, v in batch.items()}))
         bad = [name for name, ok in checks.items() if not ok]
     bad += [name for name in CLI_REFUSALS
             if cli[name]["rc"] == 0
@@ -2392,7 +2504,8 @@ def phase_runtime(port, device):
     from the port's source and checked; ``RealtimeRunner`` in both
     schedules, alone; then each of the five CLI commands as a user runs
     it and the two refusals, all at once (a subprocess each), while the
-    wire loop runs here in both formats. No hand kernel runs here (the
+    wire loop runs here in both formats and then ``batch``'s blocks in
+    turn (:func:`batch_in_turn`). No hand kernel runs here (the
     tick is ``control_tick``'s): the launches are read around the
     in-process runs and printed."""
     executor = executor_checks(port)
@@ -2400,17 +2513,452 @@ def phase_runtime(port, device):
     runners = {schedule: runner_run(port, device, schedule)
                for schedule in ("sim", "sensor_rate_ekf")}
     t0 = time.perf_counter()
-    cli, wires = cli_runs(
-        {**CLI_COMMANDS, **CLI_REFUSALS},
-        beside=lambda: {fmt: wire_run(port, device, fmt, *rest)
-                        for fmt, *rest in WIRE_RUNS})
-    log(f"  cli: {len(cli)} commands at once, beside the wire loops, in "
-        f"{time.perf_counter() - t0:.1f} s")
-    cli_checks(cli)
+    cli, (wires, in_turn) = cli_runs(
+        {**CLI_COMMANDS, **CLI_EXTRA, **CLI_REFUSALS},
+        beside=lambda: ({fmt: wire_run(port, device, fmt, *rest)
+                         for fmt, *rest in WIRE_RUNS},
+                        batch_in_turn(port, device)))
+    log(f"  cli: {len(cli)} commands at once, beside the wire loops and "
+        f"the batch's blocks in turn, in {time.perf_counter() - t0:.1f} s")
+    cli_checks(cli, in_turn)
     return dict(executor=executor, runner=runners, wire=wires,
+                batch_in_turn=in_turn,
                 cli={name: {k: v for k, v in rec.items()
                             if k != "stderr_tail"}
                      for name, rec in cli.items()})
+
+
+def joint_states(port, b: int):
+    """``b`` seeded states of the articulated plant in four equal groups,
+    float64 on the CPU, and their torques: standing under the stance
+    map's torques with perturbed joints and velocities, the pins at the
+    perturbed feet; legs 0 and 3 in swing, their knees flexed 0.4 rad;
+    in flight, 0.1 m up; legs 1 and 2 just touching down (knees extended
+    0.06 rad into the ground, falling at 0.1 m/s). Returns (params,
+    terrain, state, torques)."""
+    import torch
+    jp, kin, mathx = port.joint_plant, port.kinematics, port.mathx
+    cpu, f64 = torch.device("cpu"), torch.float64
+    _, params = port.config.load_profile("gazebo_mpc", device=cpu)
+    pb = port.tensors.tree_map(
+        lambda a: a.double() if a.is_floating_point() else a,
+        port.tensors.broadcast_batch(params, b))
+    terr = port.terrain.Terrain.flat(b, dtype=f64, device=cpu)
+    ps = jp.init_standing(pb, terr, 0.3, dtype=f64, device=cpu)
+    gen = torch.Generator().manual_seed(16)
+    noise = lambda std, *shape: std * torch.randn(
+        (b,) + shape, generator=gen, dtype=f64)
+    g = b // 4
+    q = ps.joint_pos + noise(0.03, 12)
+    contact = ps.in_contact.clone()
+    for leg in (0, 3):
+        q[g:2 * g, 3 * leg + 2] -= 0.4
+        contact[g:2 * g, leg] = False
+    contact[2 * g:3 * g] = False
+    for leg in (1, 2):
+        q[3 * g:, 3 * leg + 2] += 0.06
+        contact[3 * g:, leg] = False
+    root = ps.root_pos.clone()
+    root[2 * g:3 * g, 2] += 0.1
+    lin = noise(0.05, 3)
+    lin[3 * g:, 2] = -0.1
+    quat = mathx.euler_to_quat(noise(0.03, 3))
+    legs = q.reshape(b, 4, 3)
+    feet = root[:, None, :] + torch.einsum(
+        "bij,blj->bli", mathx.quat_to_rot(quat),
+        kin.fk(legs, torch.zeros(3, dtype=f64), pb.rho_fix))
+    ps = ps.replace(
+        root_pos=root, root_quat=quat, root_lin_vel=lin,
+        root_ang_vel=noise(0.1, 3), joint_pos=q, joint_vel=noise(0.2, 12),
+        in_contact=contact,
+        pin_anchor=torch.where(contact[..., None], feet, ps.pin_anchor))
+    weight = pb.robot_mass * 9.81 / 4.0
+    grf = torch.zeros(b, 4, 3, dtype=f64)
+    grf[..., 2] = -weight[:, None]
+    tau = torch.einsum("blji,blj->bli", kin.jac(legs, pb.rho_opt,
+                                                pb.rho_fix), grf)
+    return pb, terr, ps, tau.reshape(b, 12) + noise(0.3, 12)
+
+
+def joint_diff(card, host, dtype: str) -> dict:
+    """Each field's largest distance, card against CPU, and the fields
+    outside the tolerance (``JOINT_*``); flags must be equal."""
+    import torch
+    dist, bad = {}, []
+    for name in dataclasses.fields(card):
+        k = name.name
+        a, h = getattr(card, k).cpu(), getattr(host, k)
+        if a.dtype == torch.bool:
+            dist[k] = int((a != h).sum())
+            bad += [k] if dist[k] else []
+            continue
+        dist[k] = float((a.double() - h.double()).abs().max())
+        if dtype == "float64":
+            ok = dist[k] <= JOINT_F64_TOL
+        elif k == "foot_force_n":
+            ok = dist[k] <= JOINT_FORCE_TOL
+        else:
+            ok = dist[k] <= (JOINT_F32_ATOL + JOINT_F32_RTOL
+                             * float(h.double().abs().max()))
+        bad += [] if ok else [k]
+    return dict(max_abs=dist, outside=bad)
+
+
+def joint_card_vs_cpu(port, device) -> dict:
+    """One ``_substep`` and one ``plant_step`` (``JOINT_SUBSTEPS``) at
+    ``JOINT_BATCH`` from :func:`joint_states`, on the card and on the
+    CPU, in float64 and float32."""
+    import torch
+    jp, tensors = port.joint_plant, port.tensors
+    pb, terr, ps, tau = joint_states(port, JOINT_BATCH)
+    out = {}
+    for dtype, tdt in (("float64", torch.float64),
+                       ("float32", torch.float32)):
+        cast = lambda tree, dev: tensors.tree_map(
+            lambda a: a.to(dev, tdt) if a.is_floating_point()
+            else a.to(dev), tree)
+        dt = torch.tensor(JOINT_DT, dtype=tdt)
+        runs = {}
+        for where, dev in (("card", device), ("cpu", torch.device("cpu"))):
+            args = (cast(pb, dev), cast(terr, dev), cast(ps, dev),
+                    tau.to(dev, tdt))
+            sub, info = jp._substep(*args, dt.to(dev) / JOINT_SUBSTEPS)
+            if bool((info != 0).any()):
+                raise AssertionError(f"joint plant {where} {dtype}: "
+                                     f"singular KKT")
+            runs[where] = (sub, jp.plant_step(*args, dt.to(dev),
+                                              JOINT_SUBSTEPS))
+        for i, what in enumerate(("substep", "plant_step")):
+            rep = joint_diff(runs["card"][i], runs["cpu"][i], dtype)
+            out[f"{what}_{dtype}"] = rep
+            log(f"  joint plant card vs CPU, {what} {dtype} (B = "
+                f"{JOINT_BATCH}): " + ", ".join(
+                    f"{k} {v:.3g}" for k, v in rep["max_abs"].items()))
+        ref = runs["cpu"][1]
+        out[f"transitions_{dtype}"] = dict(
+            touched_down=int((~ps.in_contact & ref.in_contact.cpu()).sum()),
+            released=int((ps.in_contact & ~ref.in_contact.cpu()).sum()))
+    log(f"  joint plant contact transitions over the plant_step (CPU): "
+        + json.dumps({k: v for k, v in out.items()
+                      if k.startswith("transitions")}))
+    bad = {k: v["outside"] for k, v in out.items() if v.get("outside")}
+    if bad:
+        raise AssertionError(f"joint plant card vs CPU: {bad}")
+    return out
+
+
+def joint_physics(port, device) -> dict:
+    """``tests/test_joint_plant.py:38-117`` on the card: free fall, torque
+    saturation, standing equilibrium, the sensors at rest."""
+    import torch
+    jp, kin = port.joint_plant, port.kinematics
+    _, params = port.config.load_profile("gazebo_mpc", device=device)
+    pb = port.tensors.broadcast_batch(params, 1)
+    terr = port.terrain.Terrain.flat(1, device=device)
+    ps0 = jp.init_standing(pb, terr, 0.3, device=device)
+    dt = torch.tensor(JOINT_DT, device=device)
+    rep = {}
+
+    up = torch.tensor([0.0, 0.0, 5.0], device=device)
+    ps = ps0.replace(root_pos=ps0.root_pos + up,
+                     foot_pos=ps0.foot_pos + up,
+                     in_contact=torch.zeros_like(ps0.in_contact))
+    z0 = float(ps.root_pos[0, 2])
+    for _ in range(40):
+        ps = jp.plant_step(pb, terr, ps, torch.zeros(1, 12, device=device),
+                           dt, substeps=2)
+    t = 40 * JOINT_DT
+    rep["free_fall_err_m"] = abs(float(ps.root_pos[0, 2])
+                                 - (z0 - 0.5 * 9.81 * t * t))
+
+    big = jp.plant_step(pb, terr, ps0, torch.full((1, 12), 1e6,
+                                                  device=device), dt, 5)
+    lim = jp.plant_step(pb, terr, ps0, torch.full(
+        (1, 12), jp.TORQUE_LIMIT, device=device), dt, 5)
+    rep["saturation_dqd"] = float((big.joint_vel - lim.joint_vel).abs().max())
+    sat_ok = torch.allclose(big.joint_vel, lim.joint_vel, rtol=1e-5,
+                            atol=1e-6)
+
+    weight = float(params.robot_mass) * 9.81
+    jacs = kin.jac(ps0.joint_pos.reshape(1, 4, 3), pb.rho_opt, pb.rho_fix)
+    f = torch.tensor([0.0, 0.0, -weight / 4.0], device=device)
+    tau = torch.einsum("zlba,b->zla", jacs, f).reshape(1, 12)
+    ps = ps0
+    for _ in range(20):
+        ps = jp.plant_step(pb, terr, ps, tau, dt, substeps=5)
+    rep["stand_force_frac"] = float(ps.foot_force_n.sum()) / weight
+    rep["stand_feet_moved_m"] = float((ps.foot_pos - ps0.foot_pos).abs().max())
+    rep["stand_z_m"] = float(ps.root_pos[0, 2])
+
+    s = jp.read_sensors(pb, ps0, ps0.root_lin_vel, dt)
+    rep["imu_acc"] = s.imu_acc[0].tolist()
+    ok = (rep["free_fall_err_m"] < 0.01 and sat_ok
+          and abs(rep["stand_force_frac"] - 1.0) < 0.12
+          and rep["stand_feet_moved_m"] < 2e-3
+          and abs(rep["stand_z_m"] - 0.3) < 0.01
+          and max(abs(a - b) for a, b in zip(rep["imu_acc"],
+                                             (0.0, 0.0, 9.81))) < 1e-3)
+    log(f"  joint plant physics on the card: {rep}")
+    if not ok:
+        raise AssertionError(f"joint plant physics: {rep}")
+    return rep
+
+
+def joint_state_file(name: str) -> Path:
+    """Where a ``JOINT_ROLLOUTS`` protocol's process leaves its last
+    state and torques for :func:`joint_step_alone`."""
+    return ROOT / "build" / f"joint_{name}.pt"
+
+
+def joint_env(port, device, name: str):
+    """(cfg, one scenario's params, flat terrain) of a protocol."""
+    tensors = port.tensors
+    spec = JOINT_ROLLOUTS[name]
+    cfg, params = port.config.load_profile(spec["profile"], device=device)
+    cfg = dataclasses.replace(cfg, mpc_qp_iters=JOINT_MPC_ITERS)
+    return (cfg, tensors.broadcast_batch(params, 1),
+            port.terrain.Terrain.flat(1, device=device))
+
+
+def joint_rollout(port, device, name: str) -> dict:
+    """One ``JOINT_ROLLOUTS`` protocol through ``rollout(plant=
+    joint_plant)`` on one scenario: its wall time and ms a tick, its
+    trajectory checked; its last state and torques saved to
+    :func:`joint_state_file`."""
+    import math
+    import torch
+    spec = JOINT_ROLLOUTS[name]
+    cl, jp = port.closed_loop, port.joint_plant
+    cfg, pb, terr = joint_env(port, device, name)
+    carry = cl.make_standing_start(cfg, pb, terr, height=spec["height"],
+                                   plant=jp, device=device)
+    joy = cl.joy_schedule(spec["n_steps"], walk_after=spec["walk_after"],
+                          velx=spec["velx"], device=device)
+    port.kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    carry, trace = cl.rollout(cfg, pb, terr, carry, joy, spec["n_steps"],
+                              substeps=JOINT_ROLLOUT_SUBSTEPS, plant=jp,
+                              device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: n for k, n in port.kernels.launches.items() if n}
+    rp = trace.root_pos[:, 0].cpu().numpy()
+    state = {f.name: getattr(carry.ps, f.name)
+             for f in dataclasses.fields(carry.ps)}
+    joint_state_file(name).parent.mkdir(parents=True, exist_ok=True)
+    torch.save(dict(state=state, torques=trace.joint_torques[-1]),
+               joint_state_file(name))
+    rep = dict(
+        **spec, ticks=spec["n_steps"], wall_s=wall,
+        ms_per_tick=wall * 1e3 / spec["n_steps"],
+        final_pos=rp[-1].tolist(),
+        min_z_walking=float(rp[spec["walk_after"] + 200:, 2].min()),
+        max_z_walking=float(rp[spec["walk_after"] + 200:, 2].max()),
+        nan=bool(not all(math.isfinite(v) for v in rp.flatten())),
+        launches=launches)
+    log(f"  joint plant {name} ({spec}): {rep['wall_s']:.1f} s, "
+        f"{rep['ms_per_tick']:.1f} ms a tick (beside the other protocol "
+        f"and phase 6h's checks); final {rep['final_pos']}, z while "
+        f"walking {rep['min_z_walking']:.4f}-{rep['max_z_walking']:.4f}; "
+        f"kernel launches {launches or 'none'}")
+    ok = not rep["nan"]
+    if name == "trot":
+        ok = ok and (rep["final_pos"][0] > TROT_MIN_X
+                     and TROT_Z[0] < rep["min_z_walking"]
+                     and rep["max_z_walking"] < TROT_Z[1])
+    if not ok:
+        raise AssertionError(f"joint plant {name}: {rep}")
+    return rep
+
+
+def joint_step_alone(port, device, name: str) -> dict:
+    """``plant_step`` from a protocol's last state and torques, with
+    nothing else running: its ms (CUDA events over 20 calls), its host
+    reads (the counted ``info`` read and every synchronizing call), and
+    the card's operations of one call (torch.profiler's CUDA events:
+    kernels, copies and fills), also a substep."""
+    import torch
+    from torch.autograd import DeviceType
+    jp, tensors = port.joint_plant, port.tensors
+    cfg, pb, terr = joint_env(port, device, name)
+    saved = torch.load(joint_state_file(name), map_location=device)
+    ps = jp.JointPlantState(**saved["state"])
+    dt = torch.tensor(cfg.control_dt, device=device)
+    step = lambda: jp.plant_step(pb, terr, ps, saved["torques"], dt,
+                                 JOINT_ROLLOUT_SUBSTEPS)
+    step_ms = cuda_ms(step, 20)
+    syncs0 = tensors.host_syncs
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for _ in range(3):
+                step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    with port.profiling.trace(str(TRACE_DIR / f"joint_{name}")) as prof:
+        step()
+        torch.cuda.synchronize()
+    ops = sum(e.count for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA)
+    rep = dict(plant_step_ms=step_ms,
+               counted_reads_per_step=(tensors.host_syncs - syncs0) / 3,
+               synchronizing_calls_per_step=len(caught) / 3,
+               sync_sites=sorted({f"{Path(w.filename).name}:{w.lineno}"
+                                  for w in caught}),
+               device_ops_per_step=ops or None,
+               device_ops_per_substep=(ops / JOINT_ROLLOUT_SUBSTEPS
+                                       if ops else None))
+    log(f"  joint plant {name}: plant_step alone ({JOINT_ROLLOUT_SUBSTEPS} "
+        f"substeps, nothing else running) {step_ms:.2f} ms, "
+        + (f"{ops} device operations a plant_step "
+           f"({ops / JOINT_ROLLOUT_SUBSTEPS:.1f} a substep)" if ops else
+           "device operations not measured (the profiler saw none)")
+        + f", host reads a plant_step: counted "
+        f"{rep['counted_reads_per_step']}, synchronizing calls "
+        f"{rep['synchronizing_calls_per_step']} {rep['sync_sites']}")
+    return rep
+
+
+def joint_rollout_main(name: str) -> int:
+    """``chip_smoke.py --joint-rollout NAME``: :func:`joint_rollout` in a
+    process of its own, its report as the last line."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    print(json.dumps(joint_rollout(Port(), torch.device("cuda"), name)),
+          flush=True)
+    return 0
+
+
+def phase_joint_plant(port, device) -> dict:
+    """The articulated plant on the card: the two closed-loop protocols,
+    each in a process of its own (both host-bound on one scenario, so
+    they run side by side), while this process holds the plant against
+    the port on the CPU and runs the JAX tests' physics; then, once they
+    are done, ``plant_step`` alone from each protocol's last state. No
+    hand kernel: ``torch.linalg.solve_ex`` and products, as the JAX
+    package's XLA solve and dots."""
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--joint-rollout",
+         name], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for name in JOINT_ROLLOUTS}
+    try:
+        rep = dict(card_vs_cpu=joint_card_vs_cpu(port, device),
+                   physics=joint_physics(port, device))
+        for name, proc in procs.items():
+            out, err = proc.communicate(timeout=JOINT_ROLLOUT_TIMEOUT_S)
+            lines = out.strip().splitlines()
+            for line in lines[:-1]:
+                log(line)
+            if proc.returncode != 0:
+                raise AssertionError(f"joint plant {name}: rc "
+                                     f"{proc.returncode}\n{err[-3000:]}")
+            rep[name] = json.loads(lines[-1])
+    finally:
+        for proc in procs.values():
+            proc.kill()
+    for name in JOINT_ROLLOUTS:
+        rep[name].update(joint_step_alone(port, device, name))
+    rep["wall_s"] = time.perf_counter() - t0
+    log(f"  phase 6h: {rep['wall_s']:.1f} s")
+    return rep
+
+
+def same_results(port, a, b) -> bool:
+    """Every tensor of two result trees bit-equal."""
+    import torch
+    pairs = []
+    port.tensors.tree_map(lambda x, y: pairs.append((x, y)), a, b)
+    return all(torch.equal(x, y) for x, y in pairs)
+
+
+def mesh_dryrun(port, device) -> dict:
+    """``entry.dryrun_multichip(1)`` under a NCCL group of one rank, the
+    launches counted from 0 just before it and read just after (K1, K2
+    and K3 each at least once), then ``dryrun_cases`` without the mesh
+    on the same batch: every case's per-scenario results bit-equal."""
+    import torch
+    import torch.distributed as dist
+    k, mesh, entry = port.kernels, port.mesh, port.entry
+    rank_device = mesh.multihost_init(mesh.local_coordinator(), 1, 0,
+                                      device=device)
+    try:
+        backend = dist.get_backend()
+        k.reset_launches()
+        t0 = time.perf_counter()
+        out = entry.dryrun_multichip(1, rank_device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: n for name, n in k.launches.items() if n}
+    finally:
+        dist.destroy_process_group()
+    ref = entry.dryrun_cases(1, None, device)
+    equal = {key: same_results(port, out[key], ref[key]) for key in (
+        "err", "carry_step", "carry_reduced", "carry_amortized",
+        "kkt_carry")}
+    rep = dict(backend=backend, wall_s=wall, launches=launches,
+               bit_equal=equal, mean_err=float(out["mean_err"]))
+    log(f"  dryrun_multichip(1) ({backend}): {wall:.1f} s, kernel launches "
+        f"{launches}, per-scenario results bit-equal without the mesh "
+        f"{equal}")
+    if (backend != "nccl" or not all(equal.values())
+            or any(launches.get(name, 0) < 1 for name in (K1, K2, K3))):
+        raise AssertionError(f"dryrun_multichip: {rep}")
+    return rep
+
+
+def mesh_workers(port, device) -> dict:
+    """The port's worker as two processes sharing the card (gloo): both
+    ranks print equal ``MULTIHOST_OK`` values, and those equal, within
+    ``MESH_REL_TOL``, one process's run of each rank's block in turn,
+    reduced on the host."""
+    import torch
+    port_no = port.mesh.local_coordinator().rsplit(":", 1)[1]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", f"{PKG}.scripts.multihost_worker", str(i),
+         "2", port_no] + (["--cpu"] if device.type == "cpu" else []),
+        cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for i in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=CLI_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            p.kill()
+    wall = time.perf_counter() - t0
+    for i, (p, out) in enumerate(zip(procs, outs)):
+        log(f"  worker {i}: rc {p.returncode}: "
+            + " | ".join(out.strip().splitlines()[-5:]))
+    if any(p.returncode != 0 or "MULTIHOST_OK" not in out
+           for p, out in zip(procs, outs)):
+        raise AssertionError("multihost workers failed:\n"
+                             + "\n".join(o[-2000:] for o in outs))
+    vals = [out.split("MULTIHOST_OK")[1].split()[:3] for out in outs]
+    blocks = [port.multihost_worker.block_torques(i, 2, device)
+              for i in range(2)]
+    ref = [float(torch.cat([b[name] for b in blocks]).abs().double().mean())
+           for name in ("xla", "production", "amortized")]
+    rel = [abs(float(v) - r) / abs(r) for v, r in zip(vals[0], ref)]
+    rep = dict(wall_s=wall, ranks=vals, one_process=ref, rel=rel,
+               backend=("gloo" if "backend=gloo" in outs[0] else "?"))
+    log(f"  workers (2 ranks, one card): {wall:.1f} s, MULTIHOST_OK "
+        f"{vals}, one process in turn {ref}, relative {rel}")
+    if vals[0] != vals[1] or max(rel) > MESH_REL_TOL \
+            or rep["backend"] != "gloo":
+        raise AssertionError(f"multihost workers: {rep}")
+    return rep
+
+
+def phase_mesh(port, device) -> dict:
+    return dict(dryrun=mesh_dryrun(port, device),
+                workers=mesh_workers(port, device))
 
 
 def kernel_entry(name, source, replaces, rows, launches, lib):
@@ -2558,6 +3106,10 @@ def main() -> int:
     dual_rate = phase_dual_rate(port, device)
     log("[6g] runtime and CLI")
     runtime = phase_runtime(port, device)
+    log("[6h] articulated plant")
+    joint = phase_joint_plant(port, device)
+    log("[6i] mesh")
+    mesh = phase_mesh(port, device)
 
     log("[7] kernels")
     # each kernel's launches on the path it is read for: K1/K2 on the
@@ -2610,6 +3162,9 @@ def main() -> int:
         if entry["name"] in golden["amortized"]["launches"]:
             entry["launches_by_route"]["amortized_gate"] = \
                 golden["amortized"]["launches"][entry["name"]]
+        if entry["name"] in mesh["dryrun"]["launches"]:
+            entry["launches_by_route"]["dryrun_multichip"] = \
+                mesh["dryrun"]["launches"][entry["name"]]
     kernels[4]["launches_by_route"][main_route[K5]] = launches[K5]
     kernels[1]["occupancy_per_sm"] = k2_occupancy
     kernels[2]["occupancy_per_sm"] = occupancy
@@ -2643,7 +3198,8 @@ def main() -> int:
                     "stand": stand, "small_stand": small_stand,
                     "stand_gate": gate, "golden_gates": golden,
                     "terrain_eval": terrain, "dual_rate": dual_rate,
-                    "runtime": runtime,
+                    "runtime": runtime, "joint_plant": joint,
+                    "mesh": mesh,
                     "seconds": time.perf_counter() - t_start}))
     log(card)
     log(json.dumps({"kernels": kernels}))
@@ -2654,4 +3210,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--joint-rollout"]:
+        sys.exit(joint_rollout_main(sys.argv[2]))
     sys.exit(main())

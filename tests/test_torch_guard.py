@@ -46,7 +46,9 @@ def test_port_imports_no_jax():
                  "runtime.telemetry", "runtime.checkpoint",
                  "runtime.native", "runtime.wire", "runtime.sdk_wire",
                  "adapters.gazebo", "adapters.hardware", "adapters.isaac",
-                 "adapters.joystick", "__main__"):
+                 "adapters.joystick", "__main__", "entry",
+                 "parallel.mesh", "sim.joint_plant", "models.calibration",
+                 "scripts.multihost_worker"):
         assert f"{port.__name__}.{name}" in mods, name
 
 
@@ -76,7 +78,10 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     from a1_qp_mpc_controller_tpu_torch.scripts import (
         micro_admm, probe_mosaic, probe_mosaic3,
     )
-    from a1_qp_mpc_controller_tpu_torch.sim import closed_loop, terrain
+    from a1_qp_mpc_controller_tpu_torch import entry
+    from a1_qp_mpc_controller_tpu_torch.parallel import mesh
+    from a1_qp_mpc_controller_tpu_torch.sim import closed_loop, joint_plant
+    from a1_qp_mpc_controller_tpu_torch.sim import terrain
     from a1_qp_mpc_controller_tpu_torch.tensors import broadcast_batch
     from a1_qp_mpc_controller_tpu_torch.types import JoyCmd
 
@@ -137,6 +142,16 @@ def test_entry_points_raise_without_a_card(monkeypatch):
             *(np.zeros(k, np.float32) for k in (3, 3, 12, 12, 4)))),
         lambda: hardware.make_foot_force_filter(2),
         lambda: joystick.JoyState.init(),
+        lambda: joint_plant.init_standing(pb, terr),
+        lambda: closed_loop.make_standing_start(cfg, pb, terr,
+                                                plant=joint_plant),
+        lambda: batched.make_bench_state(cfg, torch.Generator(), 2, params),
+        lambda: batched.bench_state_from_params(cfg, pb),
+        lambda: mesh.multihost_init(),
+        lambda: mesh.multihost_init("127.0.0.1:1", 1, 0),
+        lambda: entry.entry(),
+        lambda: entry.dryrun_cases(1, None),
+        lambda: entry.dryrun_multichip(1),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):

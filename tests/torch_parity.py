@@ -37,9 +37,10 @@ def jax_to_dict(obj):
     return np.asarray(obj)
 
 
-def to_port(cls, jax_obj):
-    """The port's ``cls`` built from a JAX pytree, on the CPU."""
-    return convert.from_numpy(cls, jax_to_dict(jax_obj), CPU)
+def to_port(cls, jax_obj, float64=torch.float32):
+    """The port's ``cls`` built from a JAX pytree, on the CPU (float64
+    leaves as ``float64``)."""
+    return convert.from_numpy(cls, jax_to_dict(jax_obj), CPU, float64)
 
 
 def t(x, dtype=None):
